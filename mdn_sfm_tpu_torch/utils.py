@@ -1,0 +1,27 @@
+"""Small runtime utilities."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks for
+    another. Raises when CUDA is asked for (explicitly or by default) and is
+    missing — an entry point never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def use_full_f32() -> None:
+    """Keep float32 matmuls and convolutions in full float32 on the card.
+
+    cuDNN runs float32 convolutions in TF32 by default (about three decimal
+    digits), which is too coarse for the f32 parity runs and for the
+    epipolar geometry; the bf16 runs go through autocast and are unaffected."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,114 @@
+"""Weights carried across from the JAX package: a Flax variable tree of numpy
+arrays → the port's state dict.
+
+The port's parameter names are the reference's (the names
+``mdn_sfm_tpu.checkpoints.export_pth`` writes), so the result loads with
+``load_state_dict(strict=True)``. This module keeps its own copy of that key
+mapping and needs neither JAX nor the JAX package: pull the variables to the
+host first (``jax.device_get``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+NETS = ("flownet", "posenet", "mobile_decoder")
+
+_BN_LEAF = {
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+_POSE_INDEX = {"squeeze": 0, "pose_0": 1, "pose_1": 2, "pose_2": 3}
+_HEADS = {"flownet": "pred_flow", "mobile_decoder": "pred_mobile"}
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, Any]:
+    out: dict[tuple, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _conv_leaf(leaf: str) -> str:
+    return {"kernel": "weight", "bias": "bias"}[leaf]
+
+
+def _encoder_key(coll: str, path: tuple) -> str:
+    """(collection, path under 'encoder') → torchvision trunk key."""
+    if path[0] == "conv1":
+        return "conv1.weight"
+    if path[0] == "bn1":
+        return f"bn1.{_BN_LEAF[(coll, path[1])]}"
+    m = re.fullmatch(r"layer(\d)_(\d+)", path[0])
+    if m is None:
+        raise KeyError(path)
+    block = f"layer{m.group(1)}.{m.group(2)}"
+    name, leaf = path[1], path[-1]
+    if name == "downsample_conv":
+        return f"{block}.downsample.0.weight"
+    if name == "downsample_bn":
+        return f"{block}.downsample.1.{_BN_LEAF[(coll, leaf)]}"
+    if name.startswith("conv"):
+        return f"{block}.{name}.weight"
+    if name.startswith("bn"):
+        return f"{block}.{name}.{_BN_LEAF[(coll, leaf)]}"
+    raise KeyError(path)
+
+
+def _decoder_index(net: str, name: str) -> int:
+    """upconv_{i}_{j} → (4 − i)·2 + j; pred_{flow,mobile}_{s} → 10 + s."""
+    m = re.fullmatch(r"upconv_(\d)_(\d)", name)
+    if m:
+        return (4 - int(m.group(1))) * 2 + int(m.group(2))
+    m = re.fullmatch(rf"{_HEADS[net]}_(\d)", name)
+    if m:
+        return 10 + int(m.group(1))
+    raise KeyError(name)
+
+
+def torch_key(net: str, coll: str, path: tuple) -> tuple[str, bool]:
+    """Map one Flax variable (collection, path) to (state-dict key, is_conv_kernel)."""
+    is_kernel = path[-1] == "kernel"
+    if net in ("flownet", "posenet") and path[0] == "encoder":
+        return "encoder.encoder." + _encoder_key(coll, path[1:]), is_kernel
+    if net == "posenet" and path[0] == "decoder":
+        return f"decoder.pose_net.{_POSE_INDEX[path[1]]}.{_conv_leaf(path[-1])}", is_kernel
+    if net == "flownet" and path[0] == "decoder":
+        # ('decoder', name, 'conv'[, 'conv'], leaf)
+        idx = _decoder_index(net, path[1])
+        inner = ".".join(path[2:-1])
+        return f"decoder.flow_net.{idx}.{inner}.{_conv_leaf(path[-1])}", is_kernel
+    if net == "mobile_decoder":
+        idx = _decoder_index(net, path[0])
+        inner = ".".join(path[1:-1])
+        return f"mobile_net.{idx}.{inner}.{_conv_leaf(path[-1])}", is_kernel
+    raise KeyError(f"{net}: no port parameter for {coll}/{'/'.join(path)}")
+
+
+def state_dict_from_flax(net: str, variables: Mapping) -> dict[str, torch.Tensor]:
+    """Convert ``net``'s Flax variables ({'params': …, 'batch_stats': …} of
+    numpy arrays) into the port's state dict, transposing conv kernels from
+    HWIO to OIHW.
+
+    Args:
+        net: one of ``"flownet"``, ``"posenet"``, ``"mobile_decoder"``.
+    """
+    if net not in NETS:
+        raise ValueError(f"net must be one of {NETS}, not {net!r}")
+    sd: dict[str, torch.Tensor] = {}
+    for (coll, *path), value in _flatten(variables).items():
+        key, is_kernel = torch_key(net, coll, tuple(path))
+        arr = np.asarray(value, dtype=np.float32)
+        if is_kernel and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        sd[key] = torch.from_numpy(np.array(arr, order="C"))  # a copy: device_get arrays are read-only
+    return sd

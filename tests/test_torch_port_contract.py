@@ -1,0 +1,138 @@
+"""What the PyTorch port promises besides numbers: it imports neither JAX
+nor the JAX package, its config reads the JAX package's options, the
+behaviours it does not have yet raise, and its entry points default to the
+card and refuse to fall back to the CPU."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from mdn_sfm_tpu import config as jc
+from mdn_sfm_tpu_torch import config as tc
+from mdn_sfm_tpu_torch.utils import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(*args: str, timeout: int = 300):
+    return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    """Every module of the port and chip_smoke.py import with jax, flax,
+    optax and mdn_sfm_tpu made unimportable."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'mdn_sfm_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import mdn_sfm_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(mdn_sfm_tpu_torch.__path__, 'mdn_sfm_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'mdn_sfm_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    res = _run("-c", code)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result():
+    res = _run("chip_smoke.py", timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=""))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_train_cli_refuses_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    res = _run("-c", "from mdn_sfm_tpu_torch.train import main; main(['--synthetic', '--num_steps', '1'])")
+    assert res.returncode != 0 and "CUDA is not available" in res.stderr
+
+
+def test_train_cli_runs_on_cpu_when_asked():
+    res = _run(
+        "-c", "from mdn_sfm_tpu_torch.train import main; main(['--synthetic', '--num_steps', '2', "
+        "'--device', 'cpu', '--height', '64', '--width', '96', '--batch_size', '1', '--mode', 'TG', "
+        "'--w_d2_sim', '0', '--log_frequency', '1'])"
+    )
+    assert res.returncode == 0, res.stderr
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("epoch 0 | batch")]
+    assert len(lines) == 2 and all("loss: " in ln for ln in lines)
+
+
+def test_config_fields_and_defaults_match_jax():
+    jf = {f.name: f.default for f in dataclasses.fields(jc.Config)}
+    tf = {f.name: f.default for f in dataclasses.fields(tc.Config)}
+    assert tf.keys() == jf.keys()
+    for k in jf:
+        assert (tf[k].value if isinstance(tf[k], tc.Mode) else tf[k]) == \
+               (jf[k].value if isinstance(jf[k], jc.Mode) else jf[k]), k
+
+
+def test_opt_json_reads_in_both(tmp_path):
+    path = str(tmp_path / "opt.json")
+    jcfg = jc.Config(height=192, width=640, mode=jc.Mode.TG, threshold=9.22, scales=(0, 1, 2, 3))
+    jcfg.save(path)
+    cfg = tc.Config.load(path)
+    assert cfg.mode == tc.Mode.TG and (cfg.height, cfg.width) == (192, 640)
+    assert json.loads(cfg.to_json()) == json.loads(jcfg.to_json())
+
+
+def test_train_flags_match_jax():
+    argv = ["--mode", "TG", "--height", "192", "--width", "640", "--threshold", "9.22",
+            "--w_d2_sim", "0", "--scales", "0", "1", "--disable_min"]
+    t = tc.parse_train_config(argv)
+    j = jc.parse_train_config(argv)
+    assert json.loads(t.to_json()) == json.loads(j.to_json())
+
+
+@pytest.mark.parametrize(
+    "field,value",
+    [
+        ("remat", True),
+        ("accum_steps", 2),
+        ("fine_tune_flow_motion", True),
+        ("mask_provider", "precomputed"),
+        ("bn_frozen_eval", False),
+        ("num_data_shards", 2),
+        ("skip_nonfinite_updates", True),
+        ("use_pallas_epipolar", False),
+    ],
+)
+def test_unimplemented_options_raise(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        tc.Config(**{field: value}).validate()
+
+
+@pytest.mark.parametrize("kw", [dict(height=100), dict(frame_ids=(1, 0, -1)), dict(compute_dtype="float16")])
+def test_invalid_config_raises(kw):
+    with pytest.raises(ValueError):
+        tc.Config(**kw).validate()
