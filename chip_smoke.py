@@ -33,6 +33,7 @@ TRAIN_STEPS = 30        # timed steps of the main path (≥ 20)
 WARMUP_STEPS = 3
 KERNEL_REPS = 100       # launches per kernel and shape in a timing (≥ 50)
 KERNEL_WARMUP = 20
+COLD_COPIES = 8         # copies of a step's epipolar inputs, 125 MB in all, cycled
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s
 # and float32 FLOP/s outside the tensor cores.
@@ -97,31 +98,14 @@ def device_ms(fn, reps: int, warmup: int, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-def epi_inputs(b: int, h: int, w: int, seed: int, nchw_view: bool):
-    """Random flow of a few pixels and a KITTI-like forward-moving pose."""
-    import torch
-
-    from mdn_sfm_tpu_torch.data.synthetic import synthetic_intrinsics
-    from mdn_sfm_tpu_torch.geometry import invert_intrinsics, rot_from_axisangle
-
-    g = torch.Generator().manual_seed(seed)
-    if nchw_view:  # the networks' layout, read through a (B, H, W, 2) view
-        flow = (3.0 * torch.randn(b, 2, h, w, generator=g)).cuda().permute(0, 2, 3, 1)
-    else:
-        flow = (3.0 * torch.randn(b, h, w, 2, generator=g)).cuda()
-    K = torch.from_numpy(synthetic_intrinsics(h, w)).expand(b, 4, 4)
-    inv_K = invert_intrinsics(K).cuda()
-    R = rot_from_axisangle(0.01 * torch.randn(b, 3, generator=g)).cuda()
-    t = (torch.tensor([0.0, 0.0, 0.8]) + 0.05 * torch.randn(b, 3, generator=g)).cuda()
-    return flow, inv_K, R, t
-
-
-def epi_bound_ms(b: int, h: int, w: int) -> tuple[float, float]:
-    """(bytes, operations) times in ms for the map: the flow read once, the
-    map written once and the pose tables, against its f32 operations. The
-    least time the card could take is the larger of the two."""
-    px = b * h * w
-    nbytes = px * (2 * 4 + 4) + b * (9 + 9 + 3) * 4
+def epi_bound_ms(maps) -> tuple[float, float]:
+    """(bytes, operations) times in ms for the maps: each flow read once, each
+    map written once and the pose tables (inv_K, R, t: 21 floats an image),
+    against the maps' f32 operations. The least time the card could take is
+    the larger of the two."""
+    px = sum(m.flow[..., 0].numel() for m in maps)
+    images = sum(m.flow.shape[0] for m in maps)
+    nbytes = px * (2 * 4 + 4) + images * (9 + 9 + 3) * 4
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * px * EPI_FLOP_PER_PX / PEAK_F32_FLOP_PER_S
 
 
@@ -129,37 +113,39 @@ def bound_of(t_bytes: float, t_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> None:
+def check_maps(E, maps, what: str, want_vec: bool | None) -> float:
+    """The many-map kernel against its plain version, map by map, within
+    EPI_REL_TOL of each map's largest value; the largest abs error."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available")
+    vec = [E.vector_layout(m.flow) for m in maps]
+    got = E.epipolar_abs_residual_maps(maps)
+    want = E.epipolar_abs_residual_maps_reference(maps)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for m, v, g, r in zip(maps, vec, got, want):
+        err = float((g - r).abs().max())
+        scale = float(r.abs().max())
+        ok = bool(torch.isfinite(g).all()) and err <= EPI_REL_TOL * scale and (want_vec is None or v == want_vec)
+        emit({"phase": "kernel_check", "kernel": "epipolar_abs_residual_maps", "maps": what,
+              "shape": list(m.flow.shape[:3]), "scale": list(m.scale), "vector_path": v,
+              "max_abs_err": err, "max_abs_ref": scale, "rel_err": err / scale, "tol_rel": EPI_REL_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"epipolar maps kernel disagrees with its plain version: {what} {tuple(m.flow.shape)}")
+        worst = max(worst, err)
+    return worst
 
-    from mdn_sfm_tpu_torch import training as T
-    from mdn_sfm_tpu_torch.config import Config, Mode
-    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
-    from mdn_sfm_tpu_torch.geometry import fundamental_matrix
-    from mdn_sfm_tpu_torch.ops import _build
+
+def kernel_phase(smi: str) -> dict:
+    """Phase 3: the kernel against its plain version, then timing. Its
+    tensors die on return, so the main path's peak memory is its own."""
+    import torch
+
     from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import epi_inputs, ragged_maps, step_maps
 
-    # ---- 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    emit({"phase": "card", "nvidia_smi": smi, "device": kind, "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda, "python": sys.version.split()[0]})
-
-    # ---- 2. build every kernel from the checkout (one nvcc per source, in parallel)
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "sources": _build.sources(), "libraries": [p.name for p in libs]})
-
-    # ---- 3. kernel vs plain at the main path's shapes, then timing. The main
-    # path hands the kernel dense NHWC flow (the loss's scaling to pixels
-    # writes it); the permuted NCHW view is the other layout it reads.
+    # 3a. one map a launch (the one-map entry, pixel flow, scale 1) at the
+    # main path's shapes, dense NHWC and the permuted NCHW view
     shapes = [(BATCH, HEIGHT >> s, WIDTH >> s) for s in SCALES]
     shapes += [(2 * BATCH, h, w) for _, h, w in shapes] + [(1, 37, 83)]
     worst = 0.0
@@ -180,30 +166,124 @@ def main() -> None:
                     f"epipolar kernel disagrees with its plain version at {(b, h, w)} {layout}")
             worst = max(worst, err)
 
-    # the kernel alone (bare launches, F prebuilt) and the plain version, both
-    # as device time on the main path's layout; and the wrapper's span per
-    # call as the main path pays it
-    per_scale = []
-    for i, (b, h, w) in enumerate(shapes[: len(SCALES)]):
-        flow, inv_K, R, t = epi_inputs(b, h, w, seed=100 + i, nchw_view=False)
-        F = fundamental_matrix(inv_K[..., :3, :3], R, t).reshape(b, 9).contiguous()
-        out = torch.empty((b, h, w), device="cuda")
-        ms = device_ms(lambda: E.launch(F, flow, out), KERNEL_REPS, KERNEL_WARMUP)
-        plain = device_ms(lambda: E.epipolar_abs_residual_reference(flow, inv_K, R, t),
-                          KERNEL_REPS, KERNEL_WARMUP)
-        call = call_ms(lambda: E.epipolar_abs_residual(flow, inv_K, R, t), KERNEL_REPS, KERNEL_WARMUP)
-        t_bytes, t_ops = epi_bound_ms(b, h, w)
-        bound, by = bound_of(t_bytes, t_ops)
-        per_scale.append((ms, plain, t_bytes, t_ops, call))
-        emit({"phase": "kernel_time", "kernel": "epipolar_abs_residual", "shape": [b, h, w],
-              "ms": ms, "plain_ms": plain, "wrapper_call_ms": call, "bound_ms": bound,
-              "bound_by": by, "share_of_bound": bound / ms, "reps": KERNEL_REPS, "card": smi})
-    nref = 2  # reference frames per step
-    step_kernel_ms = nref * sum(p[0] for p in per_scale)
-    step_plain_ms = nref * sum(p[1] for p in per_scale)
-    step_call_ms = nref * sum(p[4] for p in per_scale)
-    step_bound_ms, step_bound_by = bound_of(nref * sum(p[2] for p in per_scale),
-                                           nref * sum(p[3] for p in per_scale))
+    # 3b. a step's 8 maps in one launch, normalized flow with its scale: as
+    # the loss hands them over (vector path), dense (vector path), as NCHW
+    # views (scalar path); and ragged shapes mixing both paths
+    for i, (layout, vec) in enumerate((("loss", True), ("dense", True), ("nchw_view", False))):
+        worst = max(worst, check_maps(E, step_maps(layout, BATCH, HEIGHT, WIDTH, seed=10 + i), layout, vec))
+    worst = max(worst, check_maps(E, ragged_maps(seed=20), "ragged", None))
+
+    # 3c. timing on the main path's layout. The bare launch (table prebuilt):
+    # 8 one-map launches (A) against 1 eight-map launch (B), in turns A B B A,
+    # as device time of KERNEL_REPS launches in a CUDA graph (flow in L2);
+    # B with its flow cold; the plain version; and the wrapper's call span as
+    # the main path pays it (table built and checked on the host each call)
+    maps = step_maps("loss", BATCH, HEIGHT, WIDTH, seed=100)
+    dev = maps[0].flow.device
+    out8 = torch.empty(E.out_offsets(maps)[1], device=dev)
+    table8 = E.build_table(maps, out8)
+    outs1 = [torch.empty(E.out_offsets([m])[1], device=dev) for m in maps]
+    tables1 = [E.build_table([m], o) for m, o in zip(maps, outs1)]
+
+    def eight_launches():
+        for t in tables1:
+            E.launch(t, dev)
+
+    def one_launch():
+        E.launch(table8, dev)
+
+    turns = {"A1": device_ms(eight_launches, KERNEL_REPS, KERNEL_WARMUP),
+             "B1": device_ms(one_launch, KERNEL_REPS, KERNEL_WARMUP),
+             "B2": device_ms(one_launch, KERNEL_REPS, KERNEL_WARMUP),
+             "A2": device_ms(eight_launches, KERNEL_REPS, KERNEL_WARMUP)}
+    step_kernel_ms = (turns["B1"] + turns["B2"]) / 2
+    eight_launch_ms = (turns["A1"] + turns["A2"]) / 2
+    # cold, in a CUDA graph as the warm time is taken: B over COLD_COPIES
+    # copies of the step's inputs in turn. Between two launches on one copy
+    # the others read and write about 110 MB, more than the 50 MB L2, so each
+    # launch finds its flow in device memory. (An event pair around a single
+    # replay after a flush would time the replay's fixed cost too.)
+    cold = []
+    for k in range(COLD_COPIES):
+        c = step_maps("loss", BATCH, HEIGHT, WIDTH, seed=200 + k)
+        o = torch.empty(E.out_offsets(c)[1], device=dev)
+        cold.append((E.build_table(c, o), c, o))  # the table holds raw pointers: keep its tensors
+    turn = [0]
+
+    def rotating_launch():
+        E.launch(cold[turn[0] % COLD_COPIES][0], dev)
+        turn[0] += 1
+
+    cold_ms = device_ms(rotating_launch, KERNEL_REPS, KERNEL_WARMUP)
+    del cold
+    # yardstick, used nowhere in the port: one PyTorch elementwise pass that
+    # moves the same bytes (reads the step's 8 flows as one (P, 2) tensor,
+    # writes P floats), warm and over COLD_COPIES copies
+    npx = sum(m.flow[..., 0].numel() for m in maps)
+    same = [(torch.randn(npx, 2, device=dev), torch.empty(npx, device=dev)) for _ in range(COLD_COPIES)]
+    same_bytes_ms = device_ms(lambda: torch.add(same[0][0][:, 0], same[0][0][:, 1], out=same[0][1]),
+                              KERNEL_REPS, KERNEL_WARMUP)
+    turn[0] = 0
+
+    def rotating_same_bytes():
+        x, o = same[turn[0] % COLD_COPIES]
+        torch.add(x[:, 0], x[:, 1], out=o)
+        turn[0] += 1
+
+    same_bytes_cold_ms = device_ms(rotating_same_bytes, KERNEL_REPS, KERNEL_WARMUP)
+    del same
+    step_plain_ms = device_ms(lambda: E.epipolar_abs_residual_maps_reference(maps), KERNEL_REPS, KERNEL_WARMUP)
+    step_call_ms = call_ms(lambda: E.epipolar_abs_residual_maps(maps), KERNEL_REPS, KERNEL_WARMUP)
+    t_bytes, t_ops = epi_bound_ms(maps)
+    step_bound_ms, step_bound_by = bound_of(t_bytes, t_ops)
+    warm_share = step_bound_ms / step_kernel_ms
+    emit({"phase": "kernel_time", "kernel": "epipolar_abs_residual_maps",
+          "work": "the 8 maps of a train step, as the loss hands them over",
+          "one_launch_ms_turns": [turns["B1"], turns["B2"]],
+          "eight_one_map_launches_ms_turns": [turns["A1"], turns["A2"]],
+          "ms": step_kernel_ms, "eight_launches_ms": eight_launch_ms,
+          "cold_ms": cold_ms, "cold_copies": COLD_COPIES,
+          "same_bytes_torch_pass_ms": same_bytes_ms, "same_bytes_torch_pass_cold_ms": same_bytes_cold_ms,
+          "plain_ms": step_plain_ms, "wrapper_call_ms": step_call_ms,
+          "bound_ms": step_bound_ms, "bound_by": step_bound_by,
+          "share_of_bound_warm": warm_share, "share_of_bound_cold": step_bound_ms / cold_ms,
+          "note": ("warm share above 1.0: the flow came from L2, not device memory; the bound is "
+                   "against HBM" if warm_share > 1.0 else "shares against the HBM bound"),
+          "reps": KERNEL_REPS, "card": smi})
+    return {"max_abs_err": worst, "ms": step_kernel_ms, "cold_ms": cold_ms, "plain_ms": step_plain_ms,
+            "bound_ms": step_bound_ms, "bound_by": step_bound_by, "wrapper_call_ms": step_call_ms,
+            "eight_launches_ms": eight_launch_ms}
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+    from mdn_sfm_tpu_torch.ops import _build
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+
+    # ---- 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "card", "nvidia_smi": smi, "device": kind, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    # ---- 2. build every kernel from the checkout (one nvcc per source, in parallel)
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "sources": _build.sources(), "libraries": [p.name for p in libs]})
+
+    # ---- 3. the kernel against its plain version, then timing
+    kern = kernel_phase(smi)
 
     # ---- 4. the main path: TG train steps at 640×192, batch 4, bf16
     cfg = Config(height=HEIGHT, width=WIDTH, batch_size=BATCH, mode=Mode.TG, threshold=9.22,
@@ -221,7 +301,7 @@ def main() -> None:
     before = {k: v.detach().clone() for k, v in models.mobile.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
 
-    E.epipolar_abs_residual.launches = 0
+    E.epipolar_abs_residual_maps.launches = E.epipolar_abs_residual_maps.maps = 0
     losses, step_s = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -229,7 +309,7 @@ def main() -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append({k: float(v) for k, v in m.items()})
-    launches = E.epipolar_abs_residual.launches
+    launches, nmaps = E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps
 
     finite = all(math.isfinite(x) for d in losses for x in d.values())
     changed = sum(not torch.equal(v, before[k]) for k, v in models.mobile.state_dict().items())
@@ -241,14 +321,16 @@ def main() -> None:
           "first_loss": losses[0]["loss"], "last_loss": losses[-1]["loss"],
           "last_grad_norm": losses[-1]["grad_norm"], "losses_finite": finite,
           "mobile_params_changed": f"{changed}/{len(before)}",
-          "epipolar_launches": launches, "expected_launches": 8 * TRAIN_STEPS,
+          "epipolar_launches": launches, "expected_launches": TRAIN_STEPS,
+          "epipolar_maps": nmaps, "expected_maps": 8 * TRAIN_STEPS,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
     if not finite:
         raise AssertionError("non-finite loss in the main path")
     if changed == 0:
         raise AssertionError("the mobile decoder's params did not change")
-    if launches != 8 * TRAIN_STEPS:
-        raise AssertionError(f"epipolar kernel launched {launches} times, expected {8 * TRAIN_STEPS}")
+    if launches != TRAIN_STEPS or nmaps != 8 * TRAIN_STEPS:
+        raise AssertionError(f"epipolar kernel launched {launches} times for {nmaps} maps, "
+                             f"expected {TRAIN_STEPS} for {8 * TRAIN_STEPS}")
 
     # ---- 5. the step is right: a small f32 step on the card equals the CPU's
     small = Config(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
@@ -277,19 +359,22 @@ def main() -> None:
 
     # ---- summary lines
     emit({"kernels": [{
-        "name": "epipolar_abs_residual",
+        "name": "epipolar_abs_residual_maps",
         "route": "cuda",
         "source": "mdn_sfm_tpu_torch/csrc/epipolar.cu",
         "replaces": "mdn_sfm_tpu/ops/pallas_epipolar.py:31",
         "launches": launches,
-        "max_abs_err": worst,
-        "ms": step_kernel_ms,
-        "plain_ms": step_plain_ms,
-        "bound_ms": step_bound_ms,
-        "bound_by": step_bound_by,
+        "maps": nmaps,
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["ms"],
+        "cold_ms": kern["cold_ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
         "library_ms": None,
-        "wrapper_call_ms": step_call_ms,
-        "work": "one train step: 2 reference frames x 4 scales at B=4, 192x640 ... 24x80",
+        "wrapper_call_ms": kern["wrapper_call_ms"],
+        "eight_launches_ms": kern["eight_launches_ms"],
+        "work": "one train step in one launch: 2 reference frames x 4 scales at B=4, 192x640 ... 24x80",
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

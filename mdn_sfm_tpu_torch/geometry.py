@@ -97,9 +97,15 @@ def _on_device(make, args: tuple, device: torch.device) -> Tensor:
     return torch.from_numpy(make(*args)).to(device)
 
 
+def _scale_factor_np(height: int, width: int) -> np.ndarray:
+    return np.array([width, height], np.float32)
+
+
 def scale_factor(height: int, width: int, device: torch.device | str = "cpu") -> Tensor:
-    """(2,) = [W, H]: converts the networks' normalized flow to pixel flow."""
-    return torch.tensor([width, height], dtype=torch.float32, device=device)
+    """(2,) = [W, H]: converts the networks' normalized flow to pixel flow
+    (cached per device like the other constants, so a step copies nothing to
+    the card; read-only)."""
+    return _on_device(_scale_factor_np, (height, width), torch.device(device))
 
 
 # ----------------------------------------------------------- epipolar maps

@@ -24,7 +24,7 @@ from .geometry import (
     resize_bilinear,
     scale_factor,
 )
-from .ops.epipolar import epipolar_abs_residual
+from .ops.epipolar import EpipolarMap, epipolar_abs_residual_maps
 
 Tensor = torch.Tensor
 
@@ -161,28 +161,22 @@ class LossAux(NamedTuple):
 
 def epipolar_loss_terms(
     cfg: Config,
-    flow_px: Tensor,
+    resid: Tensor,
     mobile: Tensor,
-    inv_K: Tensor,
-    rotation: Tensor,
-    translation: Tensor,
     instance_mask: Tensor | None,
     gauss_weight: Tensor | None,
 ) -> tuple[Tensor, Tensor, Tensor]:
-    """One (frame, scale) epipolar loss:
+    """One (frame, scale) epipolar loss from its |epipolar residual| map
+    ``resid`` (B, H, W):
 
     mean(background·post) + α·mean(|mobile·log(background+1e-5)|)
     [+ w_d2_sim·mean(BCE(mobile, instance_union))]
 
     Returns (scalar loss, post map, ori map).
     """
-    # flow and pose are frozen (Config.validate refuses fine-tuning them), so
-    # the map carries no gradient; the flow tensor's device chooses the CUDA
-    # kernel or its plain version
-    resid = epipolar_abs_residual(flow_px, inv_K, rotation, translation)[..., None]
     post, ori = post_process_epipolar(
         cfg.mode,
-        resid,
+        resid[..., None],
         threshold=cfg.threshold,
         gauss_weight=gauss_weight,
         instance_mask=instance_mask,
@@ -228,7 +222,7 @@ def compute_losses(
         colors: {(frame_id, scale): (B, Hs, Ws, 3) normalized image}.
         inv_Ks: {scale: (B, 3+, 3+) inverse intrinsics}.
         flows: {(frame_id, scale): (B, Hs, Ws, 2) NORMALIZED flow}; multiplied
-            by [Ws, Hs] here.
+            by [Ws, Hs] here (inside the epipolar kernel on the card).
         mobiles: {(frame_id, scale): (B, Hs, Ws, 1) sigmoid mobile maps}.
         cam_T_cams: {frame_id: (B, 4, 4)}.
         instance_mask: (B, Hm, Wm) instance-union mask in [0, 1], or None.
@@ -253,11 +247,23 @@ def compute_losses(
         losses["photo"] = zero
     aux = LossAux({}, {}, {}, {})
 
+    # every |epipolar residual| map of the step in one call: the networks'
+    # normalized flow with its pixel scale, and the pose read in place. Flow
+    # and pose are frozen (Config.validate refuses fine-tuning them), so the
+    # maps carry no gradient; the flow's device chooses the CUDA kernel or
+    # its plain version
+    keys = [(i, s) for s in cfg.scales for i in frame_ids]
+    maps = []
+    for i, s in keys:
+        _, hs, ws, _ = colors[(0, s)].shape
+        T = cam_T_cams[i]
+        maps.append(EpipolarMap(flows[(i, s)].float(), (float(ws), float(hs)), inv_Ks[s], T[:, :3, :3], T[:, :3, 3]))
+    resids = dict(zip(keys, epipolar_abs_residual_maps(maps)))
+
     for s in cfg.scales:
         avg = float(2**s)
         tgt = colors[(0, s)]
         _, hs, ws, _ = tgt.shape
-        sf = scale_factor(hs, ws, device)
 
         m1 = mobiles[(frame_ids[0], s)]
         m2 = mobiles[(frame_ids[1], s)]
@@ -270,7 +276,8 @@ def compute_losses(
         gw = gauss[s] if gauss is not None else None
         for i in frame_ids:
             mobile = mobiles[(i, s)] if cfg.disable_min else min_mobile
-            flow_px = flows[(i, s)].float() * sf  # pixels
+            # pixel flow, only where it is read
+            flow_px = flows[(i, s)].float() * scale_factor(hs, ws, device) if use_photo or s == 0 else None
 
             if not cfg.disable_smoothloss:
                 losses["smooth"] = losses["smooth"] + smooth_loss(tgt, mobile) / avg
@@ -279,11 +286,7 @@ def compute_losses(
                 photo, _, _, _ = photometric_loss(tgt, colors[(i, s)], flow_px, use_ssim=not cfg.no_ssim)
                 losses["photo"] = losses["photo"] + photo / avg
 
-            T = cam_T_cams[i]
-            epip_loss, post, ori = epipolar_loss_terms(
-                cfg, flow_px, mobile, inv_Ks[s], T[:, :3, :3], T[:, :3, 3],
-                instance_mask, gw,
-            )
+            epip_loss, post, ori = epipolar_loss_terms(cfg, resids[(i, s)], mobile, instance_mask, gw)
             losses["epip"] = losses["epip"] + epip_loss / avg
 
             if s == 0:

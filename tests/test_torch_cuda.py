@@ -1,5 +1,6 @@
 """Tests of the port's CUDA kernels on the card. A CUDA kernel has no
-interpret mode, so these skip on a machine without a GPU; run them there with
+interpret mode, so these skip on a machine without a GPU; run them there
+with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -25,15 +26,9 @@ def card():
 
 
 def _inputs(b, h, w, seed, device):
-    from mdn_sfm_tpu_torch.data.synthetic import synthetic_intrinsics
-    from mdn_sfm_tpu_torch.geometry import invert_intrinsics, rot_from_axisangle
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import epi_inputs
 
-    g = torch.Generator().manual_seed(seed)
-    flow = 3.0 * torch.randn(b, 2, h, w, generator=g)
-    K = torch.from_numpy(synthetic_intrinsics(h, w)).expand(b, 4, 4)
-    R = rot_from_axisangle(0.01 * torch.randn(b, 3, generator=g))
-    t = torch.tensor([0.0, 0.0, 0.8]) + 0.05 * torch.randn(b, 3, generator=g)
-    return [x.to(device) for x in (flow.permute(0, 2, 3, 1), invert_intrinsics(K), R, t)]
+    return list(epi_inputs(b, h, w, seed, nchw_view=True, device=device))
 
 
 @pytest.mark.parametrize("shape", [(4, 192, 640), (4, 96, 320), (4, 48, 160), (4, 24, 80),
@@ -42,11 +37,11 @@ def test_epipolar_kernel_matches_plain(card, shape):
     from mdn_sfm_tpu_torch.ops import epipolar as E
 
     args = _inputs(*shape, seed=sum(shape), device=card)
-    n0 = E.epipolar_abs_residual.launches
+    n0 = E.epipolar_abs_residual_maps.launches
     got = E.epipolar_abs_residual(*args)
     want = E.epipolar_abs_residual_reference(*args)
     torch.cuda.synchronize()
-    assert E.epipolar_abs_residual.launches == n0 + 1
+    assert E.epipolar_abs_residual_maps.launches == n0 + 1
     assert got.shape == shape and got.is_contiguous() and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= REL_TOL * float(want.abs().max())
 
@@ -59,16 +54,17 @@ def test_epipolar_kernel_refuses_grad(card):
         E.epipolar_abs_residual(flow.detach().requires_grad_(), inv_K, R, t)
 
 
-@pytest.mark.parametrize("arg,bad", [(1, torch.float64), (2, "cpu"), (3, "cpu")])
-def test_epipolar_kernel_refuses_pose_off_device_or_not_f32(card, arg, bad):
+@pytest.mark.parametrize("arg,bad,match", [(1, torch.float64, "must be float32"), (2, "cpu", "on one device"),
+                                           (3, "cpu", "on one device")])
+def test_epipolar_kernel_refuses_pose_off_device_or_not_f32(card, arg, bad, match):
     from mdn_sfm_tpu_torch.ops import epipolar as E
 
     args = _inputs(1, 8, 8, 0, card)
     args[arg] = args[arg].to(bad)
-    n0 = E.epipolar_abs_residual.launches
-    with pytest.raises(ValueError, match="must be float32 on cuda"):
+    n0 = E.epipolar_abs_residual_maps.launches
+    with pytest.raises(ValueError, match=match):
         E.epipolar_abs_residual(*args)
-    assert E.epipolar_abs_residual.launches == n0
+    assert E.epipolar_abs_residual_maps.launches == n0
 
 
 def test_train_step_launches_kernel_8_times(card):
@@ -82,7 +78,58 @@ def test_train_step_launches_kernel_8_times(card):
     opt = T.make_optimizer(cfg, models, 10)
     colors, K = synthetic_batch(2, 64, 96, seed=0)
     batch = {"colors_u8": torch.from_numpy(colors).to(card), "K": torch.from_numpy(K).to(card)}
-    n0 = E.epipolar_abs_residual.launches
+    n0 = E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps
     m = T.train_step(cfg, models, opt, batch, generator=torch.Generator(device=card).manual_seed(1))
-    assert E.epipolar_abs_residual.launches == n0 + 8
+    # one launch computes the step's 8 maps (2 reference frames x 4 scales)
+    assert (E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps) == (n0[0] + 1, n0[1] + 8)
     assert all(torch.isfinite(v) for v in m.values())
+
+
+@pytest.mark.parametrize("layout,vec", [("loss", True), ("dense", True), ("nchw_view", False)])
+def test_epipolar_maps_kernel_matches_plain_at_main_path_segments(card, layout, vec):
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import BATCH, HEIGHT, WIDTH, step_maps
+
+    maps = step_maps(layout, BATCH, HEIGHT, WIDTH, seed=0)
+    assert all(E.vector_layout(m.flow) is vec for m in maps)
+    n0 = E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps
+    got = E.epipolar_abs_residual_maps(maps)
+    want = E.epipolar_abs_residual_maps_reference(maps)
+    torch.cuda.synchronize()
+    assert (E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps) == (n0[0] + 1, n0[1] + 8)
+    assert len({g.untyped_storage().data_ptr() for g in got}) == 1  # views of one buffer
+    for g, wnt, m in zip(got, want, maps):
+        assert g.shape == m.flow.shape[:3] and torch.isfinite(g).all()
+        err = float((g - wnt).abs().max())
+        print(f"{layout} {tuple(m.flow.shape)} max_abs_err {err}")
+        assert err <= REL_TOL * float(wnt.abs().max())
+
+
+def test_epipolar_maps_kernel_matches_plain_at_ragged_odd_width(card):
+    """Odd W takes the scalar path, even W the vector path, in one launch."""
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import ragged_maps
+
+    maps = ragged_maps(seed=0)
+    assert [E.vector_layout(m.flow) for m in maps] == [False, False, False, False, True]
+    got = E.epipolar_abs_residual_maps(maps)
+    want = E.epipolar_abs_residual_maps_reference(maps)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want):
+        err = float((g - wnt).abs().max())
+        print(f"ragged {tuple(g.shape)} max_abs_err {err}")
+        assert err <= REL_TOL * float(wnt.abs().max())
+
+
+@pytest.mark.parametrize("cpu_first", [True, False])
+def test_epipolar_maps_refuse_a_list_across_devices(card, cpu_first):
+    """A CPU map beside a card map raises before any path is chosen: the
+    plain version never runs on card tensors."""
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import ragged_maps
+
+    on_card, on_cpu = ragged_maps(seed=0)[:1], ragged_maps(seed=0, device="cpu")[:1]
+    n0 = E.epipolar_abs_residual_maps.launches
+    with pytest.raises(ValueError, match="on one device"):
+        E.epipolar_abs_residual_maps(on_cpu + on_card if cpu_first else on_card + on_cpu)
+    assert E.epipolar_abs_residual_maps.launches == n0

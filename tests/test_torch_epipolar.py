@@ -66,7 +66,7 @@ def test_permuted_view_input():
 
 def test_cpu_dispatch_builds_nothing_and_counts_nothing():
     """On a machine without nvcc, importing the op and running it on CPU
-    tensors builds no kernel, loads no library and leaves the counter at 0."""
+    tensors builds no kernel, loads no library and leaves the counters at 0."""
     code = (
         "import torch\n"
         "from mdn_sfm_tpu_torch.ops import epipolar as te, _build\n"
@@ -78,7 +78,7 @@ def test_cpu_dispatch_builds_nothing_and_counts_nothing():
         "t = torch.tensor([[1.0, 0.5, 0.25]]).expand(b, 3)\n"
         "out = te.epipolar_abs_residual(flow, inv_K, R, t)\n"
         "assert out.shape == (b, h, w)\n"
-        "assert te.epipolar_abs_residual.launches == 0\n"
+        "assert te.epipolar_abs_residual_maps.launches == te.epipolar_abs_residual_maps.maps == 0\n"
         "assert _build.loaded() == []\n"
         "assert built == (sorted(_build.BUILD_DIR.glob('*')) if _build.BUILD_DIR.exists() else [])\n"
         "print('ok')\n"
@@ -91,7 +91,6 @@ def test_cpu_dispatch_builds_nothing_and_counts_nothing():
 
 
 def test_wrapper_refuses_other_devices():
-    _, inv_K, R, t = map(torch.from_numpy, _inputs(1, 8, 8))
-    meta = torch.empty((1, 8, 8, 2), device="meta")
+    flow, inv_K, R, t = (torch.from_numpy(x).to("meta") for x in _inputs(1, 8, 8))
     with pytest.raises(ValueError, match="unsupported device"):
-        te.epipolar_abs_residual(meta, inv_K, R, t)
+        te.epipolar_abs_residual(flow, inv_K, R, t)
