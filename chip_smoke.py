@@ -6,8 +6,10 @@
 Builds every kernel from ``mdn_sfm_tpu_torch/csrc``, holds each against its
 plain PyTorch version at the shapes the main path gives it, drives the main
 path — the TG training step at 640×192, batch 4, bf16, ResNet18 flow/pose
-nets with random weights from a seed — through ``training.train_step``, and
-checks a small f32 step on the card against the same step on the CPU.
+nets with random weights from a seed — through ``training.train_step``,
+checks a small f32 step on the card against the same step on the CPU, and
+drives the same path through the ``Trainer`` (an epoch with checkpoints, a
+stopped run resumed with ``resume="auto"``, a checkpoint loaded back).
 
 Prints one JSON object per phase, the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -34,6 +37,20 @@ WARMUP_STEPS = 3
 KERNEL_REPS = 100       # launches per kernel and shape in a timing (≥ 50)
 KERNEL_WARMUP = 20
 COLD_COPIES = 8         # copies of a step's epipolar inputs, 125 MB in all, cycled
+TRAINER_STEPS = 12      # the Trainer phase: one epoch of this many steps
+SAVE_EVERY = 4          # its save_frequency
+STOP_AFTER = 5          # run B stops after this many steps; B2 resumes it
+LR = 1e-4               # Config.learning_rate
+# B2 against A: the same batches and draws, but the backward of the
+# reflection pads adds with atomics on the card, so the sums differ in the
+# last bits; Adam's lr·m/sqrt(v) can then flip sign only where a gradient
+# sits at that noise, which moves a param by at most 2·lr a resumed step.
+# This caps the largest difference; it cannot tell a broken resume apart.
+RESUME_PARAM_ATOL = 2 * LR * (TRAINER_STEPS - STOP_AFTER)
+# The mean |difference| over the decoder's params does: it sits between
+# B2's (the atomics' noise) and that of a control resumed with Adam's μ and
+# ν zeroed, both measured in this phase (PERF.md gives the readings)
+RESUME_MEAN_ATOL = 5e-6
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s
 # and float32 FLOP/s outside the tensor cores.
@@ -255,6 +272,195 @@ def kernel_phase(smi: str) -> dict:
             "eight_launches_ms": eight_launch_ms}
 
 
+def _mobile_and_adam(trainer) -> tuple[dict, dict]:
+    """CPU copies of the trainer's mobile-decoder params and Adam state."""
+    from mdn_sfm_tpu_torch import checkpoints as ckpt
+
+    return ckpt.to_host(trainer.models.mobile.state_dict()), ckpt.to_host(trainer.opt.state_dict())
+
+
+def _adam_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return sorted(a["state"]) == sorted(b["state"]) and all(
+        torch.equal(a["state"][i][k], b["state"][i][k])
+        for i in a["state"] for k in ("step", "exp_avg", "exp_avg_sq"))
+
+
+def _params_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], v) for k, v in b.items())
+
+
+def _drift(params: dict, ref: dict) -> tuple[float, float]:
+    """(largest, mean) |difference| over every param."""
+    import torch
+
+    d = torch.cat([(params[k] - v).abs().flatten() for k, v in ref.items()])
+    return float(d.max()), float(d.mean())
+
+
+def trainer_phase(smi: str, bare_step_ms: float) -> None:
+    """Phase 6: the Trainer at full width (TG, 640×192, batch 4, bf16,
+    synthetic): run A, one epoch of TRAINER_STEPS steps with a checkpoint
+    every SAVE_EVERY; run B, the same run stopped after STOP_AFTER steps by
+    the flag the SIGTERM handler sets; run B2, ``resume="auto"`` from B's
+    checkpoint to the end, whose loaded params and Adam state must equal
+    B's at its stop bit for bit, and which must take A's batches and land
+    within RESUME_PARAM_ATOL (largest) and RESUME_MEAN_ATOL (mean) of A's
+    params; a control C, resumed as B2 but with Adam's μ and ν zeroed, must
+    land beyond RESUME_MEAN_ATOL; A's last checkpoint loaded back into
+    fresh models and a fresh Adam, which must equal A's exactly."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdn_sfm_tpu_torch import checkpoints as ckpt
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="mdn_trainer_") as tmp:
+        def config(v_save: str, **kw) -> Config:
+            return Config(height=HEIGHT, width=WIDTH, batch_size=BATCH, mode=Mode.TG, threshold=9.22,
+                          w_d2_sim=0.0, compute_dtype="bfloat16", num_epochs=1,
+                          limit_train_samples=BATCH * TRAINER_STEPS, save_frequency=SAVE_EVERY,
+                          log_frequency=1, num_workers=2, log_dir=os.path.join(tmp, "log"),
+                          other_files_path=os.path.join(tmp, "files"), v_save=v_save, **kw).validate()
+
+        # run A, uninterrupted; its every step reads the loss, so its step
+        # times hold the device's work
+        E.epipolar_abs_residual_maps.launches = E.epipolar_abs_residual_maps.maps = 0
+        tA = Trainer(config("vA"), synthetic=True, device="cuda")
+        # what run A spends outside its steps: each wait for the loader's
+        # next batch, and each TensorBoard log (with images at batch 0)
+        waits, logs, log_args = [], [], []
+        iter_batches, log = tA.train_loader.iter_batches, tA.log
+
+        def timed_batches(skip=0):
+            it = iter_batches(skip)
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, None)
+                if item is None:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield item
+
+        def timed_log(metrics, aux, log_image=False):
+            t0 = time.perf_counter()
+            log(metrics, aux, log_image=log_image)
+            logs.append(time.perf_counter() - t0)
+            log_args[:] = [metrics, aux]
+
+        tA.train_loader.iter_batches, tA.log = timed_batches, timed_log
+        tA.train()
+        launches, nmaps = E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps
+        t0 = time.perf_counter()
+        log(*log_args, log_image=True)  # a second image log, warm
+        warm_log_s = time.perf_counter() - t0
+        models_dir = os.path.join(tmp, "log", "vA", "models")
+        n_saves = TRAINER_STEPS // SAVE_EVERY + 1  # every SAVE_EVERY steps and once at the end
+        layout_ok = os.path.exists(os.path.join(models_dir, "opt.json")) and all(
+            os.path.exists(os.path.join(ckpt.weights_folder(os.path.join(tmp, "log"), "vA", i), f))
+            for i in range(n_saves) for f in ("mobile_decoder.pth", "adam.pth", "meta.json"))
+        losses_ok = (len(tA.step_log) == TRAINER_STEPS
+                     and all(math.isfinite(loss) for _, _, loss in tA.step_log))
+        params_A, adam_A = _mobile_and_adam(tA)
+        finite = all(bool(torch.isfinite(v).all()) for v in params_A.values())
+
+        # run B, stopped after STOP_AFTER steps, then B2 resumed to the end
+        tB = Trainer(config("vB"), synthetic=True, device="cuda")
+        inner = tB.step_fn
+
+        def stop_after(batch, generator):
+            out = inner(batch, generator)
+            if len(tB.sample_history) == STOP_AFTER:
+                tB._stop_requested = True  # what the SIGTERM handler sets
+            return out
+
+        tB.step_fn = stop_after
+        tB.train()
+        params_stop, adam_stop = _mobile_and_adam(tB)
+        # the control resumes from a copy of B's checkpoints
+        shutil.copytree(os.path.join(tmp, "log", "vB", "models"), os.path.join(tmp, "log", "vC", "models"))
+        tB2 = Trainer(config("vB", resume="auto"), synthetic=True, device="cuda")
+        start_step = tB2.start_step
+        params_loaded, adam_loaded = _mobile_and_adam(tB2)
+        loaded_exact = (_params_equal(params_loaded, params_stop) and _adam_equal(adam_loaded, adam_stop)
+                        and tB2.opt.count == tB.opt.count == STOP_AFTER)
+        tB2.train()
+        params_B, _ = _mobile_and_adam(tB2)
+        same_batches = tB.sample_history + tB2.sample_history == tA.sample_history
+        diff, mean_diff = _drift(params_B, params_A)
+
+        tC = Trainer(config("vC", resume="auto"), synthetic=True, device="cuda")
+        for t in tC.opt.mu + tC.opt.nu:
+            t.zero_()
+        tC.train()
+        control_diff, control_mean = _drift(_mobile_and_adam(tC)[0], params_A)
+        resume_ok = (start_step == STOP_AFTER and loaded_exact and same_batches
+                     and diff <= RESUME_PARAM_ATOL and mean_diff <= RESUME_MEAN_ATOL < control_mean
+                     and tB2.opt.count == tA.opt.count)
+
+        # A's last checkpoint back into fresh models and a fresh Adam
+        last = ckpt.weights_folder(os.path.join(tmp, "log"), "vA", ckpt.latest_weights_idx(
+            os.path.join(tmp, "log"), "vA"))
+        fresh = T.build_models(tA.cfg, device="cuda")
+        opt = T.make_optimizer(tA.cfg, fresh, tA.steps_per_epoch)
+        merged, adam, step = ckpt.load_checkpoint(last, {"mobile_decoder": fresh.mobile.state_dict()},
+                                                  ("mobile_decoder",), load_adam=True)
+        fresh.mobile.load_state_dict(merged["mobile_decoder"])
+        opt.load_state_dict(adam)
+        loaded_params, loaded_adam = ckpt.to_host(fresh.mobile.state_dict()), ckpt.to_host(opt.state_dict())
+        load_ok = (step == TRAINER_STEPS and opt.count == tA.opt.count
+                   and _params_equal(loaded_params, params_A)
+                   and _adam_equal(loaded_adam, adam_A))
+
+        step_s = [s for _, s, _ in tA.step_log]
+        step_ms = statistics.median(step_s) * 1e3
+        # end to end: run A's wall clock from its first batch request to its
+        # last loss read, over its steps
+        wall_ms = (tA.last_loss_read - tA.loop_start) * 1e3 / TRAINER_STEPS
+        # the host copies of the saves inside the loop (not the one after its last step)
+        copies = sum(s["host_copy_s"] for s in tA.save_seconds if s["step"] < TRAINER_STEPS)
+        rest_ms = wall_ms * TRAINER_STEPS - 1e3 * (sum(step_s) + sum(waits) + sum(logs) + copies)
+        saves = [s for s in tA.save_seconds if s["async"]]
+        final = [s for s in tA.save_seconds if not s["async"]]
+        ok = (layout_ok and losses_ok and finite and resume_ok and load_ok
+              and launches == TRAINER_STEPS and nmaps == 8 * TRAINER_STEPS)
+        emit({"phase": "trainer", "mode": "TG", "height": HEIGHT, "width": WIDTH, "batch": BATCH,
+              "compute_dtype": "bfloat16", "steps": TRAINER_STEPS, "save_frequency": SAVE_EVERY,
+              "checkpoints_layout_ok": layout_ok, "params_finite": finite,
+              "epipolar_launches": launches, "expected_launches": TRAINER_STEPS,
+              "epipolar_maps": nmaps, "expected_maps": 8 * TRAINER_STEPS,
+              "trainer_wall_ms_per_step": wall_ms, "trainer_wall_examples_per_s": BATCH / (wall_ms / 1e3),
+              "trainer_median_step_ms": step_ms, "trainer_median_examples_per_s": BATCH / (step_ms / 1e3),
+              "trainer_step_ms": [1e3 * s for s in step_s],
+              "loader_wait_ms": [1e3 * s for s in waits], "log_ms": [1e3 * s for s in logs],
+              "warm_image_log_ms": 1e3 * warm_log_s, "wall_rest_ms": rest_ms,
+              "trainer_step_ms_run_B": [1e3 * s for _, s, _ in tB.step_log],
+              "trainer_step_ms_run_B2": [1e3 * s for _, s, _ in tB2.step_log],
+              "losses_run_B2": [loss for _, _, loss in tB2.step_log],
+              "losses_control": [loss for _, _, loss in tC.step_log],
+              "losses": [loss for _, _, loss in tA.step_log], "losses_finite": losses_ok,
+              "bare_train_step_median_ms": bare_step_ms,
+              "checkpoint_host_copy_ms": [1e3 * s["host_copy_s"] for s in tA.save_seconds],
+              "checkpoint_write_ms_async": [1e3 * s["write_s"] for s in saves],
+              "checkpoint_write_ms_final": [1e3 * s["write_s"] for s in final],
+              "resume_start_step": start_step, "resume_loaded_exact": loaded_exact,
+              "resume_same_batches": same_batches,
+              "resume_max_param_abs_diff": diff, "resume_param_atol": RESUME_PARAM_ATOL,
+              "resume_mean_param_abs_diff": mean_diff, "resume_mean_atol": RESUME_MEAN_ATOL,
+              "control_max_param_abs_diff": control_diff, "control_mean_param_abs_diff": control_mean,
+              "load_back_exact": load_ok, "card": smi, "ok": ok})
+        if not ok:
+            raise AssertionError("the Trainer phase failed (see its line)")
+
+
 def main() -> None:
     import torch
 
@@ -290,13 +496,12 @@ def main() -> None:
                  w_d2_sim=0.0, compute_dtype="bfloat16").validate()
     models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
     opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
-    aug = torch.Generator(device="cuda").manual_seed(1)
     batches = []
     for seed in range(4):
         colors, K = synthetic_batch(BATCH, HEIGHT, WIDTH, seed=seed)
         batches.append({"colors_u8": torch.from_numpy(colors).cuda(), "K": torch.from_numpy(K).cuda()})
     for i in range(WARMUP_STEPS):
-        T.train_step(cfg, models, opt, batches[i % 4], generator=aug)
+        T.train_step(cfg, models, opt, batches[i % 4], generator=T.step_generator(cfg.seed, i, "cuda"))
     torch.cuda.synchronize()
     before = {k: v.detach().clone() for k, v in models.mobile.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
@@ -305,7 +510,8 @@ def main() -> None:
     losses, step_s = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        m = T.train_step(cfg, models, opt, batches[i % 4], generator=aug)
+        m, _ = T.train_step(cfg, models, opt, batches[i % 4],
+                            generator=T.step_generator(cfg.seed, WARMUP_STEPS + i, "cuda"))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append({k: float(v) for k, v in m.items()})
@@ -341,7 +547,7 @@ def main() -> None:
         nets = T.build_models(small, torch.Generator().manual_seed(0), dev)
         o = T.make_optimizer(small, nets, steps_per_epoch=10)
         b = {"colors_u8": torch.from_numpy(colors).to(dev), "K": torch.from_numpy(K).to(dev)}
-        mets = [{k: float(v) for k, v in T.train_step(small, nets, o, b).items()} for _ in range(2)]
+        mets = [{k: float(v) for k, v in T.train_step(small, nets, o, b)[0].items()} for _ in range(2)]
         runs[dev] = (mets, {k: v.detach().cpu() for k, v in nets.mobile.state_dict().items()})
     # f32 on both sides, TF32 off; step 0 from equal params, step 1 after
     # Adam's first ±lr updates (the bounds tests/test_torch_train_step.py uses)
@@ -356,6 +562,9 @@ def main() -> None:
           "param_share_over_2e-5": float((pdiff > 2e-5).float().mean()), "ok": ok})
     if not ok:
         raise AssertionError("the f32 train step on the card disagrees with the CPU")
+
+    # ---- 6. the Trainer: train, checkpoint, stop, resume, load back
+    trainer_phase(smi, 1e3 * med)
 
     # ---- summary lines
     emit({"kernels": [{

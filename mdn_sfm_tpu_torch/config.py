@@ -207,6 +207,9 @@ _NOT_IMPLEMENTED = (
     # the plain epipolar map on the card comes back with the gradient-carrying
     # branch, together with fine_tune_flow_motion
     "use_pallas_epipolar",
+    # several optimizer steps a dispatch: on the card a captured multi-step
+    # CUDA graph, not a scan
+    "steps_per_dispatch",
 )
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
 _TUPLE_FIELDS = ("scales", "frame_ids", "models_to_load")

@@ -1,14 +1,26 @@
-"""Input pipeline of the port: on-device augmentation and synthetic batches.
-KITTI loading waits for a later slice."""
+"""Input pipeline of the port: the host decodes (KITTI raw through the split
+manifests, or synthetic triplets) and the card augments."""
 
 from .augment import MEAN, STD, augment_batch, draw_augment
-from .synthetic import synthetic_batch, synthetic_intrinsics
+from .cache import DecodedCache
+from .kitti import KittiRawDataset, parse_calib_intrinsics
+from .loader import HostLoader, Subset
+from .splits import read_split_lines, split_path
+from .synthetic import SyntheticDataset, synthetic_batch, synthetic_intrinsics
 
 __all__ = [
     "MEAN",
     "STD",
+    "DecodedCache",
+    "HostLoader",
+    "KittiRawDataset",
+    "Subset",
+    "SyntheticDataset",
     "augment_batch",
     "draw_augment",
+    "parse_calib_intrinsics",
+    "read_split_lines",
+    "split_path",
     "synthetic_batch",
     "synthetic_intrinsics",
 ]

@@ -1,5 +1,6 @@
 """Synthetic KITTI-shaped data — the port's own copy of
-``mdn_sfm_tpu.data.synthetic.synthetic_intrinsics`` / ``synthetic_batch``.
+``mdn_sfm_tpu.data.synthetic.synthetic_intrinsics`` / ``synthetic_batch`` /
+``SyntheticDataset``.
 Plain numpy, so both packages see the same bytes for the same seed."""
 
 from __future__ import annotations
@@ -40,3 +41,21 @@ def synthetic_batch(
 
     K = np.broadcast_to(synthetic_intrinsics(height, width), (batch_size, 4, 4)).copy()
     return colors, K
+
+
+class SyntheticDataset:
+    """Map-style dataset over :func:`synthetic_batch` items: item ``i`` is
+    ``synthetic_batch(1, H, W, F, seed=i)``."""
+
+    def __init__(self, n: int, height: int, width: int, num_frames: int = 3):
+        self.n = n
+        self.height = height
+        self.width = width
+        self.num_frames = num_frames
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, index: int) -> tuple[np.ndarray, np.ndarray]:
+        colors, K = synthetic_batch(1, self.height, self.width, self.num_frames, seed=index)
+        return colors[0], K[0]

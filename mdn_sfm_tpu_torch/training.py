@@ -11,6 +11,7 @@ multi-scale loss, whose epipolar maps go through the CUDA kernel on the card
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import math
 from typing import NamedTuple, Optional
 
@@ -100,8 +101,9 @@ class Adam:
     — or adamw with ``weight_decay`` — written out so the arithmetic matches
     optax: the clip scales g by max/‖g‖ only when ‖g‖ ≥ max (no epsilon, unlike
     ``clip_grad_norm_``), bias correction uses the incremented count, and the
-    LR of update k is ``lr(k)`` with k from 0. Updates run on the device with
-    no host sync."""
+    LR of update k is ``lr(k)`` with k from 0 — k is ``count``, optax's own
+    count, so a fresh Adam restarts the schedule as optax's does. Updates run
+    on the device with no host sync."""
 
     def __init__(self, params: list[torch.nn.Parameter], lr, b1: float, b2: float,
                  clip: float, weight_decay: float = 0.0, eps: float = 1e-8):
@@ -110,6 +112,44 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+
+    def state_dict(self) -> dict:
+        """``torch.optim.Adam``'s layout: per parameter index ``step``,
+        ``exp_avg`` (μ) and ``exp_avg_sq`` (ν), and one param group. The
+        tensors are the live ones; copy them before the next step if they
+        must outlive it. (With ``weight_decay`` the update is optax's
+        decoupled adamw, recorded as ``decoupled_weight_decay``.)"""
+        state = {
+            i: {"step": torch.tensor(float(self.count)), "exp_avg": mu, "exp_avg_sq": nu}
+            for i, (mu, nu) in enumerate(zip(self.mu, self.nu))
+        }
+        group = {"lr": float(self.lr(self.count)), "betas": (self.b1, self.b2), "eps": self.eps,
+                 "weight_decay": self.wd, "decoupled_weight_decay": self.wd > 0, "amsgrad": False,
+                 "maximize": False, "foreach": None, "capturable": False, "differentiable": False,
+                 "fused": None, "params": list(range(len(self.params)))}
+        return {"state": state, "param_groups": [group]}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore μ, ν and ``count`` from :meth:`state_dict`'s layout (an
+        empty ``state``, as a ``torch.optim.Adam`` that never stepped saves,
+        is a fresh Adam). Raises when the parameters do not match."""
+        state = sd["state"]
+        if not state:
+            self.count = 0
+            for t in self.mu + self.nu:
+                t.zero_()
+            return
+        if sorted(state) != list(range(len(self.params))):
+            raise ValueError(f"Adam state for {len(state)} parameters, this optimizer has {len(self.params)}")
+        for i, (mu, nu) in enumerate(zip(self.mu, self.nu)):
+            s = state[i]
+            if tuple(s["exp_avg"].shape) != tuple(mu.shape) or tuple(s["exp_avg_sq"].shape) != tuple(nu.shape):
+                raise ValueError(f"Adam state of parameter {i} has shape {tuple(s['exp_avg'].shape)}, "
+                                 f"the parameter {tuple(mu.shape)}")
+            mu.copy_(s["exp_avg"])
+            nu.copy_(s["exp_avg_sq"])
+        self.count = int(state[0]["step"])
 
     @torch.no_grad()
     def step(self, grads: list[Tensor]) -> Tensor:
@@ -217,6 +257,15 @@ def loss_from_batch(
 STAGES = ("augment", "forward_loss", "backward", "optimizer")
 
 
+def step_generator(seed: int, step: int, device: str | torch.device) -> torch.Generator:
+    """The augmentation generator of step ``step``: seeded from (seed, step)
+    alone, as the JAX step folds its step counter into its key, so a run
+    that is interrupted and resumed draws what an uninterrupted one draws.
+    The pair is hashed: the CPU generator keeps only a seed's low 32 bits."""
+    digest = hashlib.blake2b(f"{seed},{step}".encode(), digest_size=8).digest()
+    return torch.Generator(device=device).manual_seed(int.from_bytes(digest, "little") >> 1)
+
+
 def train_step(
     cfg: Config,
     models: ModelBundle,
@@ -224,22 +273,36 @@ def train_step(
     batch: dict,
     generator: torch.Generator | None = None,
     draws: dict | None = None,
-) -> dict[str, Tensor]:
+) -> tuple[dict[str, Tensor], LossAux]:
     """One optimizer step on ``batch`` = {'colors_u8': (B, F, H, W, 3) uint8,
     'K': (B, 4, 4)[, 'instance_mask': (B, Hm, Wm)]}, on the batch's device.
 
-    Augmentation draws come from ``draws`` or ``generator``. Returns the
-    metrics as 0-d device tensors (loss/epip/smooth/consis[/photo],
-    grad_norm); reading one syncs. Its stages carry the labels of
-    :data:`STAGES` for ``torch.profiler``."""
+    Augmentation draws come from ``draws`` or ``generator`` (per step:
+    :func:`step_generator`). Returns (metrics, aux) as the JAX step does:
+    the metrics as 0-d device tensors (loss/epip/smooth/consis[/photo],
+    grad_norm; reading one syncs) and the loss's :class:`LossAux` maps,
+    detached. Its stages carry the labels of :data:`STAGES` for
+    ``torch.profiler``."""
     with record_function("augment"):
         colors, inv_Ks, _ = augment_batch(cfg, batch["colors_u8"], batch["K"], draws=draws,
                                           generator=generator)
     with record_function("forward_loss"):
-        loss, (losses, _) = loss_from_batch(cfg, models, colors, inv_Ks, batch.get("instance_mask"))
+        loss, (losses, aux) = loss_from_batch(cfg, models, colors, inv_Ks, batch.get("instance_mask"))
     with record_function("backward"):
         grads = torch.autograd.grad(loss, opt.params)
     with record_function("optimizer"):
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["grad_norm"] = opt.step(list(grads))
-    return metrics
+    aux = LossAux(*({k: v.detach() for k, v in d.items()} for d in aux))
+    return metrics, aux
+
+
+@torch.no_grad()
+def eval_forward(
+    cfg: Config, models: ModelBundle, tgt: Tensor, ref: Tensor
+) -> tuple[dict, dict, Tensor, Tensor, Tensor]:
+    """The eval forward on a normalized (N, H, W, 3) image pair, the
+    counterpart of the JAX package's ``make_eval_forward``: (flows {s: (N,
+    Hs, Ws, 2)}, mobiles {s: (N, Hs, Ws, 1)}, axisangle, translation,
+    cam_T_cam), with no graph."""
+    return forward_frame(cfg, models, tgt, ref)

@@ -1,5 +1,5 @@
 """Weights carried across from the JAX package: a Flax variable tree of numpy
-arrays → the port's state dict.
+arrays → the port's state dict, and optax's Adam state → the port's Adam.
 
 The port's parameter names are the reference's (the names
 ``mdn_sfm_tpu.checkpoints.export_pth`` writes), so the result loads with
@@ -112,3 +112,46 @@ def state_dict_from_flax(net: str, variables: Mapping) -> dict[str, torch.Tensor
             arr = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
         sd[key] = torch.from_numpy(np.array(arr, order="C"))  # a copy: device_get arrays are read-only
     return sd
+
+
+def _find_adam(state: Any) -> Any:
+    """The ScaleByAdamState (count, mu, nu) inside an optax state."""
+    if all(hasattr(state, k) for k in ("count", "mu", "nu")):
+        return state
+    children = state.values() if isinstance(state, Mapping) else state if isinstance(state, (tuple, list)) else ()
+    for c in children:
+        found = _find_adam(c)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_optax(opt_state: Any, param_names: list[str]) -> dict:
+    """Carry optax's Adam state into the port's ``training.Adam``.
+
+    ``opt_state``: the JAX package's optimizer state for the mobile decoder
+    (``clip_by_global_norm`` → ``adam``), pulled to numpy
+    (``jax.device_get``); its ``ScaleByAdamState`` holds ``count`` and the
+    moments ``mu``/``nu`` as Flax trees, optionally under a
+    ``'mobile_decoder'`` key as the JAX train state keeps them.
+    ``param_names``: the mobile decoder's ``named_parameters`` names, in
+    order. Returns the state dict ``Adam.load_state_dict`` reads (the
+    ``torch.optim.Adam`` layout: per parameter ``step``, ``exp_avg``,
+    ``exp_avg_sq``), with conv kernels transposed HWIO → OIHW."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) found in opt_state")
+    count = int(np.asarray(adam.count))
+    moments = {}
+    for which in ("mu", "nu"):
+        tree = getattr(adam, which)
+        # the moments have the params' tree, so they map as the params do
+        sd = state_dict_from_flax("mobile_decoder", {"params": tree.get("mobile_decoder", tree)})
+        if set(sd) != set(param_names):
+            raise KeyError(f"optax {which} holds {sorted(set(sd) ^ set(param_names))} unlike the parameters")
+        moments[which] = sd
+    state = {
+        i: {"step": torch.tensor(float(count)), "exp_avg": moments["mu"][n], "exp_avg_sq": moments["nu"][n]}
+        for i, n in enumerate(param_names)
+    }
+    return {"state": state, "param_groups": [{"params": list(range(len(param_names)))}]}

@@ -17,6 +17,9 @@ from mdn_sfm_tpu_torch import config as tc
 from mdn_sfm_tpu_torch.utils import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the Trainer's slice: checkpoints, the KITTI data path and the host helpers
+NEW_MODULES = ("trainer", "checkpoints", "native", "labels", "metrics", "viz", "data.splits",
+               "data.kitti", "data.loader", "data.cache", "data.eval_datasets")
 
 
 def _run(*args: str, timeout: int = 300):
@@ -35,14 +38,19 @@ def test_port_and_chip_smoke_import_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "from mdn_sfm_tpu_torch import native\n"
+        "native.lib()\n"
+        "assert native.imgio_available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'mdn_sfm_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     res = _run("-c", code)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    names = set(res.stdout.split())
+    assert len(names) >= 25
+    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES} <= names
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
@@ -73,19 +81,27 @@ def test_default_device_is_cuda_and_raises_without_it():
 def test_train_cli_refuses_silent_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
-    res = _run("-c", "from mdn_sfm_tpu_torch.train import main; main(['--synthetic', '--num_steps', '1'])")
+    res = _run("-c", "from mdn_sfm_tpu_torch.train import main; main(['--synthetic', '--limit_train_samples', '4'])")
     assert res.returncode != 0 and "CUDA is not available" in res.stderr
 
 
-def test_train_cli_runs_on_cpu_when_asked():
+def test_train_cli_runs_on_cpu_when_asked(tmp_path):
+    """Trains, logs every step and writes the reference checkpoint layout."""
+    log_dir = str(tmp_path / "log")
     res = _run(
-        "-c", "from mdn_sfm_tpu_torch.train import main; main(['--synthetic', '--num_steps', '2', "
-        "'--device', 'cpu', '--height', '64', '--width', '96', '--batch_size', '1', '--mode', 'TG', "
-        "'--w_d2_sim', '0', '--log_frequency', '1'])"
+        "-m", "mdn_sfm_tpu_torch.train", "--synthetic", "--device", "cpu", "--num_epochs", "1",
+        "--batch_size", "2", "--height", "64", "--width", "96", "--save_frequency", "4",
+        "--v_save", "vtest", "--limit_train_samples", "10", "--mode", "TG", "--w_d2_sim", "0",
+        "--log_frequency", "1", "--num_workers", "1", "--log_dir", log_dir,
     )
     assert res.returncode == 0, res.stderr
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("epoch 0 | batch")]
-    assert len(lines) == 2 and all("loss: " in ln for ln in lines)
+    assert len(lines) == 5 and all("loss: " in ln for ln in lines)
+    models = os.path.join(log_dir, "vtest", "models")
+    assert os.path.exists(os.path.join(models, "opt.json"))
+    for idx in (0, 1):  # after step 4, and the end of the run
+        for f in ("mobile_decoder.pth", "adam.pth", "meta.json"):
+            assert os.path.exists(os.path.join(models, f"weights_{idx}", f)), (idx, f)
 
 
 def test_config_fields_and_defaults_match_jax():
@@ -125,6 +141,7 @@ def test_train_flags_match_jax():
         ("num_data_shards", 2),
         ("skip_nonfinite_updates", True),
         ("use_pallas_epipolar", False),
+        ("steps_per_dispatch", 2),
     ],
 )
 def test_unimplemented_options_raise(field, value):

@@ -60,7 +60,7 @@ def runs():
         module.load_state_dict(state_dict_from_flax(net, variables[net]), strict=True)
     opt = TT.make_optimizer(cfg, tmodels, STEPS_PER_EPOCH)
     tbatch = {"colors_u8": torch.from_numpy(colors), "K": torch.from_numpy(K)}
-    tmetrics = [{k: float(v) for k, v in TT.train_step(cfg, tmodels, opt, tbatch).items()}
+    tmetrics = [{k: float(v) for k, v in TT.train_step(cfg, tmodels, opt, tbatch)[0].items()}
                 for _ in range(STEPS)]
     return jmetrics, tmetrics, jparams, tmodels.mobile.state_dict()
 
