@@ -7,9 +7,12 @@ Builds every kernel from ``mdn_sfm_tpu_torch/csrc``, holds each against its
 plain PyTorch version at the shapes the main path gives it, drives the main
 path — the TG training step at 640×192, batch 4, bf16, ResNet18 flow/pose
 nets with random weights from a seed — through ``training.train_step``,
-checks a small f32 step on the card against the same step on the CPU, and
+checks a small f32 step on the card against the same step on the CPU,
 drives the same path through the ``Trainer`` (an epoch with checkpoints, a
-stopped run resumed with ``resume="auto"``, a checkpoint loaded back).
+stopped run resumed with ``resume="auto"``, a checkpoint loaded back), and
+runs the four eval CLIs on a KITTI-layout world at KITTI's frame size
+(640×192, bf16, batch 8; evaluate_mix and evaluate_flow through the kernel),
+with a small f32 world on the card against the CPU.
 
 Prints one JSON object per phase, the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -51,6 +54,22 @@ RESUME_PARAM_ATOL = 2 * LR * (TRAINER_STEPS - STOP_AFTER)
 # B2's (the atomics' noise) and that of a control resumed with Adam's μ and
 # ν zeroed, both measured in this phase (PERF.md gives the readings)
 RESUME_MEAN_ATOL = 5e-6
+
+# Phase 7, the eval CLIs at the main path's width: a KITTI-2015-layout world
+# at KITTI's frame size, two batches of Config.eval_batch_size
+EVAL_SAMPLES = 16
+EVAL_BATCH = 8
+KITTI_H, KITTI_W = 375, 1242
+ODOMETRY = (("09", 5), ("10", 4))  # sequences and their frames: 3 + 2 snippets of 3
+EVAL_THRESHOLD = 0.3  # the README's TG threshold; seed 0's random nets predict on both sides of it
+# the f32 check on the card against the CPU, on a world of the CPU tests'
+# size, with their tolerances (tests/test_torch_eval_{mix,flow_pose}.py)
+SMALL_SAMPLES, SMALL_FRAME, SMALL_NET = 2, (48, 96), (32, 96)
+EVAL_PRED_ATOL = 1e-4   # the upsampled mobile maps (f32 forward tolerance)
+EVAL_MARGIN = 1e-3      # no upsampled prediction lies this near a threshold
+EVAL_ROW_ATOL = 1e-6    # metric rows at such thresholds
+EVAL_EPE_RTOL = 1e-4
+EVAL_POSE_ATOL = 1e-5
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s
 # and float32 FLOP/s outside the tensor cores.
@@ -461,6 +480,228 @@ def trainer_phase(smi: str, bare_step_ms: float) -> None:
             raise AssertionError("the Trainer phase failed (see its line)")
 
 
+def write_eval_world(base: str, n: int, frame_hw: tuple[int, int], net_hw: tuple[int, int], **cfg_kw):
+    """A KITTI-2015-layout world under ``base`` (``n`` samples with GT flow,
+    semantics and GT masks; odometry sequences 09 and 10) written by
+    ``tests/fixtures.py``, and random weights from seed 0 in the reference
+    ``.pth`` layout (flow and pose under v0, the mobile decoder under v1);
+    returns the eval Config that reads it."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from fixtures import make_gt_masks, make_kitti2015, make_odometry
+
+    from mdn_sfm_tpu_torch import checkpoints as ckpt
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config
+
+    root, log_dir, out_dir = (os.path.join(base, d) for d in ("kitti", "log", "out"))
+    make_kitti2015(root, n=n, h=frame_hw[0], w=frame_hw[1])
+    make_gt_masks(os.path.join(out_dir, "gt"), n=n, h=frame_hw[0], w=frame_hw[1])
+    for seq, frames in ODOMETRY:
+        make_odometry(root, seq, n_frames=frames, h=frame_hw[0], w=frame_hw[1])
+    kw = dict(height=net_hw[0], width=net_hw[1], data_root=root, raw_dataset_dir=root, log_dir=log_dir,
+              eval_out_dir=out_dir, gt_mask_path=os.path.join(out_dir, "gt"),
+              load_weights_folder=ckpt.weights_folder(log_dir, "v0", 0), version="v1", idx=0,
+              eval_num_samples=n, eval_batch_size=EVAL_BATCH, binary_threshold=EVAL_THRESHOLD,
+              pred_errors=True, save_pred_masks=True, save_pred_motions=True, save_pred_poses=True)
+    cfg = Config(**{**kw, **cfg_kw}).validate()
+    nets = T.modules_by_name(T.build_models(cfg, torch.Generator().manual_seed(0), "cpu"))
+    sd = {k: ckpt.to_host(m.state_dict()) for k, m in nets.items()}
+    ckpt.save_checkpoint(cfg.load_weights_folder, {k: sd[k] for k in ("flownet", "posenet")})
+    ckpt.save_checkpoint(ckpt.weights_folder(log_dir, "v1", 0), {"mobile_decoder": sd["mobile_decoder"]})
+    return cfg
+
+
+def eval_outputs(cfg) -> dict[str, list[str]]:
+    """Each CLI's output files, by the paths the root CLIs write."""
+    from mdn_sfm_tpu_torch import checkpoints as ckpt
+
+    n = cfg.eval_num_samples
+    mask_dir = os.path.join(ckpt.weights_folder(cfg.log_dir, cfg.version, cfg.idx), "predictions", "mobile",
+                            cfg.eval_name)
+    flow_dir = os.path.join(cfg.eval_out_dir, "flow", cfg.eval_name)
+    return {
+        "evaluate_mix": [os.path.join(cfg.eval_out_dir, "mobile", f"masks_{cfg.version}_{cfg.idx}", f"{j}.png")
+                         for j in range(n)],
+        "evaluate_mask": [os.path.join(mask_dir, f"{j}.png") for j in range(n)],
+        "evaluate_flow": [os.path.join(flow_dir, f"{j}.png") for j in range(n)] + [os.path.join(flow_dir, "result.txt")],
+        "evaluate_pose": [os.path.join(cfg.eval_out_dir, "pose", f) for f in ("poses.npy", "result.txt")],
+    }
+
+
+def _thresholds_with_margin(values, k: int = 4) -> list[float]:
+    """Midpoints of the k widest gaps between the sorted values that are
+    wider than 2·EVAL_MARGIN."""
+    import numpy as np
+
+    values = np.sort(values)
+    gaps = np.diff(values)
+    return sorted(float(values[i] + gaps[i] / 2) for i in np.argsort(gaps)[::-1][:k] if gaps[i] > 2 * EVAL_MARGIN)
+
+
+def eval_cuda_vs_cpu(base: str) -> dict:
+    """evaluate_mix, evaluate_flow and evaluate_pose at f32 on a small world,
+    on the card and on the CPU: the upsampled mobile maps, the metric rows at
+    thresholds no prediction lies near, the mean EPEs, ATE/RE and the poses."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mdn_sfm_tpu_torch import evaluate_flow, evaluate_mix, evaluate_pose
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.data.eval_datasets import KittiSegDataset
+
+    cfg = write_eval_world(base, SMALL_SAMPLES, SMALL_FRAME, SMALL_NET, compute_dtype="float32",
+                           save_pred_masks=False, save_pred_motions=False)
+    preds = {}
+    for dev in ("cpu", "cuda"):
+        models = T.load_eval_models(cfg, dev)
+        data = KittiSegDataset(cfg.data_root, cfg.height, cfg.width, n=cfg.eval_num_samples)
+        preds[dev] = np.concatenate([
+            evaluate_mix.at_resolution(mobile, evaluate_mix.read_gt_mask(cfg.gt_mask_path, j).shape).ravel()
+            for j, _, mobile, _, _ in evaluate_mix.predict(cfg, models, data, torch.device(dev))])
+    pred_err = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    thresholds = _thresholds_with_margin(np.concatenate([preds["cpu"], preds["cuda"]]))
+    if not thresholds:
+        raise AssertionError("the small world's predictions leave no threshold with a margin")
+    cfg = dataclasses.replace(cfg, binary_threshold=thresholds[0])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        c = dataclasses.replace(cfg, eval_out_dir=os.path.join(base, f"out_{dev}"))
+        row, rows = evaluate_mix.evaluate(c, thresholds, device=dev)
+        epe = evaluate_flow.evaluate(c, device=dev)
+        pose = evaluate_pose.evaluate(c, device=dev)
+        runs[dev] = (np.concatenate([row] + [rows[t] for t in thresholds]), epe, np.stack(pose),
+                     np.load(os.path.join(c.eval_out_dir, "pose", "poses.npy")))
+    (rows_c, epe_c, pose_c, poses_c), (rows_g, epe_g, pose_g, poses_g) = runs["cpu"], runs["cuda"]
+    rows_ok = bool(np.array_equal(np.isnan(rows_c), np.isnan(rows_g))) and bool(
+        np.allclose(rows_g, rows_c, atol=EVAL_ROW_ATOL, rtol=0, equal_nan=True))
+    epe_rel = float(np.max(np.abs(epe_g - epe_c) / np.abs(epe_c)))
+    pose_err = max(float(np.abs(pose_g - pose_c).max()), float(np.abs(poses_g - poses_c).max()))
+    ok = (pred_err <= EVAL_PRED_ATOL and rows_ok and epe_rel <= EVAL_EPE_RTOL and pose_err <= EVAL_POSE_ATOL
+          and bool(np.isfinite(rows_g[0]).all()))
+    return {"shape": [SMALL_SAMPLES, *SMALL_FRAME], "net": list(SMALL_NET), "thresholds": thresholds,
+            "pred_max_abs_err": pred_err, "tol_pred": EVAL_PRED_ATOL,
+            "rows_max_abs_err": float(np.nanmax(np.abs(rows_g - rows_c))), "tol_rows": EVAL_ROW_ATOL,
+            "epe_cuda": epe_g.tolist(), "epe_cpu": epe_c.tolist(), "epe_rel_err": epe_rel, "tol_epe_rel": EVAL_EPE_RTOL,
+            "pose_max_abs_err": pose_err, "tol_pose": EVAL_POSE_ATOL, "ok": ok}
+
+
+def eval_kernel_segments(smi: str) -> dict:
+    """The kernel on one eval batch's maps (B = 8, 192×640): evaluate_mix's
+    one and evaluate_flow's two in one launch, against the plain version,
+    then timed warm as phase 3 times the step's maps."""
+    import torch
+
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import eval_maps
+
+    out = {}
+    for i, cli in enumerate(("mix", "flow")):
+        maps = eval_maps(cli, EVAL_BATCH, HEIGHT, WIDTH, seed=300 + i)
+        err = check_maps(E, maps, f"evaluate_{cli}", True)
+        dev = maps[0].flow.device
+        o = torch.empty(E.out_offsets(maps)[1], device=dev)
+        table = E.build_table(maps, o)
+        ms = device_ms(lambda: E.launch(table, dev), KERNEL_REPS, KERNEL_WARMUP)
+        plain_ms = device_ms(lambda: E.epipolar_abs_residual_maps_reference(maps), KERNEL_REPS, KERNEL_WARMUP)
+        bound_ms, bound_by = bound_of(*epi_bound_ms(maps))
+        out[f"evaluate_{cli}"] = {"maps_a_launch": len(maps), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound_warm": bound_ms / ms}
+    emit({"phase": "kernel_time", "kernel": "epipolar_abs_residual_maps",
+          "work": "one eval batch, B=8 at 192x640", "eval": out, "reps": KERNEL_REPS, "card": smi})
+    return out
+
+
+def evaluate_mix_breakdown(cfg, total_s: float) -> dict:
+    """Where a warm evaluate_mix call's ``total_s`` goes, on the host clock:
+    building and loading the nets, decoding the samples (KittiSegDataset),
+    the panels (a call without them, subtracted), and the rest (the batches'
+    forward and kernel, the upsampling, the GT reads and the scoring)."""
+    import dataclasses
+
+    from mdn_sfm_tpu_torch import evaluate_mix
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.data.eval_datasets import KittiSegDataset
+
+    t0 = time.perf_counter()
+    T.load_eval_models(cfg, "cuda")
+    nets_s = time.perf_counter() - t0
+    data = KittiSegDataset(cfg.data_root, cfg.height, cfg.width, n=cfg.eval_num_samples)
+    t0 = time.perf_counter()
+    for j in range(len(data)):
+        data[j]
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluate_mix.evaluate(dataclasses.replace(cfg, save_pred_masks=False), device="cuda")
+    panels_s = total_s - (time.perf_counter() - t0)
+    return {"total": total_s, "nets_build_and_load": nets_s, "decode": decode_s, "panels": panels_s,
+            "rest": total_s - nets_s - decode_s - panels_s}
+
+
+def eval_phase(smi: str) -> dict:
+    """Phase 7: the four eval CLIs on the card at 640×192, bf16, batch 8, on
+    a 16-sample world at KITTI's frame size: each run twice (a warm-up, then
+    timed), the epipolar launches and maps of each run counted, every output
+    file checked; the kernel on the eval batches' maps; and the f32 CLIs on
+    a small world on the card against the CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mdn_sfm_tpu_torch import evaluate_flow, evaluate_mask, evaluate_mix, evaluate_pose
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+
+    t_phase = time.perf_counter()
+    kern = eval_kernel_segments(smi)
+    base = tempfile.mkdtemp(prefix="mdn_eval_")
+    try:
+        t0 = time.perf_counter()
+        cfg = write_eval_world(os.path.join(base, "full"), EVAL_SAMPLES, (KITTI_H, KITTI_W), (HEIGHT, WIDTH))
+        world_s = time.perf_counter() - t0
+        expected = {"evaluate_mix": (2, 2), "evaluate_flow": (2, 4), "evaluate_mask": (0, 0), "evaluate_pose": (0, 0)}
+        clis, results = {}, {}
+        for mod in (evaluate_mix, evaluate_mask, evaluate_flow, evaluate_pose):
+            name = mod.__name__.rsplit(".", 1)[1]
+            counts, secs = [], []
+            for _ in range(2):  # a warm-up call, then the timed one
+                E.epipolar_abs_residual_maps.launches = E.epipolar_abs_residual_maps.maps = 0
+                t0 = time.perf_counter()
+                results[name] = mod.evaluate(cfg, device="cuda")
+                secs.append(time.perf_counter() - t0)
+                counts.append((E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps))
+            # evaluate_pose's samples are snippets of cfg.sequence_length (3) frames
+            n = sum(f - 2 for _, f in ODOMETRY) if name == "evaluate_pose" else EVAL_SAMPLES
+            clis[name] = {"epipolar_launches": counts[-1][0], "epipolar_maps": counts[-1][1],
+                          "expected": list(expected[name]), "counts_ok": all(c == expected[name] for c in counts),
+                          "seconds_warmup": secs[0], "seconds": secs[1], "samples": n,
+                          "samples_per_s": n / secs[1]}
+        breakdown = evaluate_mix_breakdown(cfg, clis["evaluate_mix"]["seconds"])
+        files = {k: all(os.path.exists(p) for p in v) for k, v in eval_outputs(cfg).items()}
+        finite = {
+            "evaluate_mix": bool(np.isfinite(results["evaluate_mix"]).all()),
+            "evaluate_flow": bool(np.isfinite(results["evaluate_flow"]).all()),
+            "evaluate_pose": bool(all(np.isfinite(x).all() for x in results["evaluate_pose"])),
+        }
+        small = eval_cuda_vs_cpu(os.path.join(base, "small"))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    ok = all(c["counts_ok"] for c in clis.values()) and all(files.values()) and all(finite.values()) and small["ok"]
+    emit({"phase": "eval", "height": HEIGHT, "width": WIDTH, "eval_batch_size": EVAL_BATCH,
+          "compute_dtype": "bfloat16", "samples": EVAL_SAMPLES, "frame": [KITTI_H, KITTI_W],
+          "world_seconds": world_s, "clis": clis, "evaluate_mix_breakdown_s": breakdown,
+          "files_ok": files, "finite": finite,
+          "mix_row": results["evaluate_mix"].tolist(), "flow_epe": results["evaluate_flow"].tolist(),
+          "pose_ate_re": [x.tolist() for x in results["evaluate_pose"]],
+          "cuda_vs_cpu_f32": small, "phase_seconds": time.perf_counter() - t_phase, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the eval phase failed (see its line)")
+    return {"clis": clis, "kernel": kern}
+
+
 def main() -> None:
     import torch
 
@@ -566,6 +807,9 @@ def main() -> None:
     # ---- 6. the Trainer: train, checkpoint, stop, resume, load back
     trainer_phase(smi, 1e3 * med)
 
+    # ---- 7. the eval CLIs at 640×192, bf16, batch 8
+    ev = eval_phase(smi)
+
     # ---- summary lines
     emit({"kernels": [{
         "name": "epipolar_abs_residual_maps",
@@ -574,7 +818,7 @@ def main() -> None:
         "replaces": "mdn_sfm_tpu/ops/pallas_epipolar.py:31",
         "launches": launches,
         "maps": nmaps,
-        "max_abs_err": kern["max_abs_err"],
+        "max_abs_err": max([kern["max_abs_err"]] + [k["max_abs_err"] for k in ev["kernel"].values()]),
         "ms": kern["ms"],
         "cold_ms": kern["cold_ms"],
         "plain_ms": kern["plain_ms"],
@@ -584,6 +828,12 @@ def main() -> None:
         "wrapper_call_ms": kern["wrapper_call_ms"],
         "eight_launches_ms": kern["eight_launches_ms"],
         "work": "one train step in one launch: 2 reference frames x 4 scales at B=4, 192x640 ... 24x80",
+        # the eval CLIs (phase 7): launches and maps of each timed run, and
+        # the kernel on one eval batch's maps (B=8, 192x640), warm
+        "eval": {name: {"launches": ev["clis"][name]["epipolar_launches"],
+                        "maps": ev["clis"][name]["epipolar_maps"],
+                        **{k: ev["kernel"][name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+                 for name in ("evaluate_mix", "evaluate_flow")},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -17,6 +17,7 @@ Layout
 - :mod:`mdn_sfm_tpu_torch.ops`       — hand-written CUDA kernels and their plain versions
 - :mod:`mdn_sfm_tpu_torch.training`  — the train step (frozen flow/pose, Adam on the decoder)
 - :mod:`mdn_sfm_tpu_torch.train`     — ``python -m mdn_sfm_tpu_torch.train --synthetic``
+- ``evaluate_{mix,mask,flow,pose}``, ``reproduce_readme_table`` — the eval CLIs
 
 Public geometry and loss functions keep the JAX package's NHWC layout (flow
 is ``(B, H, W, 2)``); the ``nn.Module``s take and return NCHW tensors.

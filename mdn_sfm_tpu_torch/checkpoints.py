@@ -27,6 +27,7 @@ import os
 from typing import Mapping
 
 import torch
+from torch import nn
 
 NETS = ("flownet", "posenet", "mobile_decoder")
 IN_PROGRESS = "saving.incomplete"
@@ -168,3 +169,13 @@ def load_checkpoint(
     adam = os.path.join(folder, "adam.pth")
     adam_state = _load(adam) if load_adam and os.path.exists(adam) else None
     return out, adam_state, int(read_meta(folder).get("step", 0))
+
+
+def load_into(folder: str, modules: Mapping[str, nn.Module], names: tuple[str, ...]) -> int:
+    """Load the nets ``names`` from ``folder`` into ``modules`` ({name:
+    module}) by :func:`load_checkpoint`'s key intersection; returns the
+    checkpoint's step."""
+    merged, _, step = load_checkpoint(folder, {n: modules[n].state_dict() for n in names}, names)
+    for n in names:
+        modules[n].load_state_dict(merged[n])
+    return step

@@ -255,12 +255,28 @@ _TRAIN_FIELDS = [
 ]
 
 
-def add_train_args(parser: argparse.ArgumentParser) -> None:
-    """The JAX package's train flags, with the same names and defaults."""
+_BOOL_FLAGS_EVAL = [
+    "save_pred_masks", "save_pred_motions", "save_pred_poses", "pred_errors",
+]
+
+_EVAL_FIELDS = [
+    "data_root", "log_dir", "raw_dataset_dir", "height", "width",
+    "num_layers", "threshold", "alpha", "scales", "batch_size", "num_workers",
+    "weights_init", "mode", "gauss_sigma1", "gauss_sigma2", "w_d2_sim",
+    "load_weights_folder", "version", "idx", "eval_name", "eval_out_dir",
+    "gt_mask_path", "sequence_length", "binary_threshold", "eval_num_samples",
+    "eval_batch_size",
+    "save_pred_masks", "save_pred_motions", "save_pred_poses", "pred_errors",
+    "mask_provider", "mask_dir", "d2_score_thresh", "d2_max_instances",
+    "d2_infer_scale", "d2_allow_random_weights", "compute_dtype",
+]
+
+
+def _add_fields(parser: argparse.ArgumentParser, names: Sequence[str], bool_flags: Sequence[str]) -> None:
     default = Config()
-    for name in _TRAIN_FIELDS:
+    for name in names:
         cur = getattr(default, name)
-        if name in _BOOL_FLAGS_TRAIN:
+        if name in bool_flags:
             parser.add_argument(f"--{name}", action="store_true", default=cur)
         elif isinstance(cur, tuple) and cur and isinstance(cur[0], int):
             parser.add_argument(f"--{name}", nargs="+", type=int, default=list(cur))
@@ -274,6 +290,17 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
             parser.add_argument(f"--{name}", type=type(cur), default=cur)
 
 
+def add_train_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX package's train flags, with the same names and defaults."""
+    _add_fields(parser, _TRAIN_FIELDS, _BOOL_FLAGS_TRAIN)
+
+
+def add_eval_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX package's eval flags, with the same names and defaults (one
+    set of defaults for train and eval, as there)."""
+    _add_fields(parser, _EVAL_FIELDS, _BOOL_FLAGS_EVAL)
+
+
 def from_args(args: argparse.Namespace) -> Config:
     return _from_dict(vars(args))
 
@@ -282,3 +309,19 @@ def parse_train_config(argv: Sequence[str] | None = None) -> Config:
     parser = argparse.ArgumentParser(description="MDN-SfM PyTorch train options")
     add_train_args(parser)
     return from_args(parser.parse_args(argv))
+
+
+def parse_eval_config(argv: Sequence[str] | None = None) -> Config:
+    parser = argparse.ArgumentParser(description="MDN-SfM PyTorch eval options")
+    add_eval_args(parser)
+    return from_args(parser.parse_args(argv))
+
+
+def parse_eval_cli(description: str, argv: Sequence[str] | None = None) -> tuple[Config, str]:
+    """An eval CLI's (config, device): the eval flags plus ``--device``
+    (default ``cuda``)."""
+    parser = argparse.ArgumentParser(description=description)
+    add_eval_args(parser)
+    parser.add_argument("--device", type=str, default="cuda", help="default: cuda")
+    args = parser.parse_args(argv)
+    return from_args(args), args.device

@@ -1,7 +1,7 @@
 """Input pipeline of the port: the host decodes (KITTI raw through the split
 manifests, or synthetic triplets) and the card augments."""
 
-from .augment import MEAN, STD, augment_batch, draw_augment
+from .augment import MEAN, STD, augment_batch, draw_augment, eval_preprocess
 from .cache import DecodedCache
 from .kitti import KittiRawDataset, parse_calib_intrinsics
 from .loader import HostLoader, Subset
@@ -18,6 +18,7 @@ __all__ = [
     "SyntheticDataset",
     "augment_batch",
     "draw_augment",
+    "eval_preprocess",
     "parse_calib_intrinsics",
     "read_split_lines",
     "split_path",

@@ -1,5 +1,5 @@
 """On-device augmentation — the port of ``mdn_sfm_tpu.data.augment``
-(``augment_batch``; ``eval_preprocess`` comes with the eval CLIs).
+(``augment_batch`` and ``eval_preprocess``).
 
 Reference semantics kept as the JAX package keeps them:
 * ColorJitter is a no-op as shipped (the reference's theta=1), so there is none.
@@ -137,3 +137,8 @@ def augment_batch(
             colors[(frame_id, s)] = per_scale[s][:, fi]
 
     return colors, inv_Ks, raw0
+
+
+def eval_preprocess(colors_u8: Tensor) -> Tensor:
+    """Normalize eval images: /255, mean 0.45, std 0.225, in float32."""
+    return (colors_u8.float() / 255.0 - MEAN) / STD

@@ -266,6 +266,46 @@ def resize_bilinear(img: Tensor, height: int, width: int) -> Tensor:
     return y[..., 0] if squeeze else y
 
 
+def _linear_weights_np(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) weights of ``jax.image.resize(method="linear")`` along one
+    axis, in float32 as JAX computes them: a triangle kernel at the sample
+    points (i + ½)·in/out − ½, widened by in/out when shrinking (the
+    antialias), each column normalized to sum 1, zero where the sample point
+    lies outside the input. The sample points are rounded to float32 once,
+    as XLA's fused multiply-add computes them: at 640 → 1242 two roundings
+    move a point by an ulp of its coordinate, a weight by 1.5e-5."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    # (i + ½)·inv_scale − ½ is exact in float64 (a 24-bit by 24-bit product)
+    half = (np.arange(out_size, dtype=f32) + f32(0.5)).astype(np.float64)
+    sample_f = (half * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, f32(0.0)).T.astype(f32))
+
+
+def resize_linear(x: Tensor, shape: tuple[int, ...]) -> Tensor:
+    """``jax.image.resize(x, shape, method="linear")``: separable linear
+    resampling of every axis whose size changes, half-pixel centres, with
+    the triangle kernel widened when shrinking (antialiased, unlike
+    :func:`resize_bilinear`) and edge weights renormalized. Float32 on the
+    tensor's device; the weights are cached per (size, device)."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != x.ndim:
+        raise ValueError(f"shape {shape} must have one size per axis of {tuple(x.shape)}")
+    x = x.float()
+    for d, n in enumerate(shape):
+        if x.shape[d] != n:
+            w = _on_device(_linear_weights_np, (x.shape[d], n), x.device)  # (n, in)
+            x = torch.movedim(torch.movedim(x, d, -1) @ w.T, -1, d)
+    return x.contiguous()
+
+
 def upsample_nearest_2x(x: Tensor) -> Tensor:
     """Nearest ×2 upsample on NHWC."""
     b, h, w, c = x.shape

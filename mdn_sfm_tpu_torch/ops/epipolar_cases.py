@@ -13,6 +13,8 @@ from .epipolar import EpipolarMap
 # the main path: TG, batch 4 at 192×640; its epipolar maps at 4 scales
 BATCH, HEIGHT, WIDTH = 4, 192, 640
 SCALES = (0, 1, 2, 3)
+# the eval CLIs at the same width: a batch of Config.eval_batch_size pairs
+EVAL_BATCH = 8
 
 
 def epi_inputs(b: int, h: int, w: int, seed: int, nchw_view: bool, device="cuda"):
@@ -60,6 +62,33 @@ def step_maps(layout: str, b: int, h: int, w: int, seed: int, device="cuda") -> 
             else:
                 flow, cam = both[fi * b:(fi + 1) * b], cam_all[fi * b:(fi + 1) * b]
             maps.append(EpipolarMap(flow, (float(ws), float(hs)), inv_K, cam[:, :3, :3], cam[:, :3, 3]))
+    return maps
+
+
+def eval_maps(cli: str, b: int, h: int, w: int, seed: int, device="cuda") -> list[EpipolarMap]:
+    """The maps of one eval batch. ``mix``: evaluate_mix's one map, the
+    nets' channels-last normalized flow with the pose net's cam_T_cam.
+    ``flow``: evaluate_flow's two, that map and the GT flow's: dense pixel
+    flow with scale (1, 1) and the stereo baseline [I | t] as its pose, t
+    the fourth column of KITTI's P_rect_03 (−0.54 m · fx)."""
+    g = torch.Generator().manual_seed(seed)
+    cam = transformation_from_parameters(
+        0.01 * torch.randn(b, 3, generator=g),
+        torch.tensor([0.0, 0.0, 0.8]) + 0.05 * torch.randn(b, 3, generator=g)).to(device)
+    K = torch.from_numpy(synthetic_intrinsics(h, w))
+    inv_K = invert_intrinsics(K.expand(b, 4, 4)).to(device)
+    if cli == "flow":  # evaluate_mix hands over (B, 4, 4), evaluate_flow (B, 3, 3)
+        inv_K = inv_K[:, :3, :3].contiguous()
+    nchw = (3.0 * torch.randn(b, 2, h, w, generator=g) / torch.tensor([w, h]).view(1, 2, 1, 1)).to(device)
+    flow = nchw.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    maps = [EpipolarMap(flow, (float(w), float(h)), inv_K, cam[:, :3, :3], cam[:, :3, 3])]
+    if cli == "flow":
+        gt = (3.0 * torch.randn(b, h, w, 2, generator=g)).to(device)
+        M = torch.zeros(b, 3, 4)
+        M[:, :, :3] = torch.eye(3)
+        M[:, 0, 3] = -0.54 * float(K[0, 0])
+        M = M.to(device)
+        maps.append(EpipolarMap(gt, (1.0, 1.0), inv_K, M[:, :3, :3], M[:, :3, 3]))
     return maps
 
 

@@ -120,18 +120,10 @@ class Trainer:
         n_val = len(self.val_dataset) if self.val_dataset else 0
         print(f"\n{len(dataset):d} training items and {n_val:d} validation items\n")
 
-    def _modules(self) -> dict[str, torch.nn.Module]:
-        m = self.models
-        return {"flownet": m.flow, "posenet": m.pose, "mobile_decoder": m.mobile}
-
     def _load_nets(self, folder: str, names: tuple[str, ...]) -> int:
         """Load ``names`` from ``folder`` into the models (key intersection);
         returns the checkpoint's step."""
-        mods = self._modules()
-        merged, _, step = ckpt.load_checkpoint(folder, {n: mods[n].state_dict() for n in names}, names)
-        for n in names:
-            mods[n].load_state_dict(merged[n])
-        return step
+        return ckpt.load_into(folder, T.modules_by_name(self.models), names)
 
     def _initialize_models(self):
         cfg = self.cfg

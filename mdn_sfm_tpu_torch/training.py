@@ -63,6 +63,31 @@ def build_models(
     return models
 
 
+def modules_by_name(models: ModelBundle) -> dict[str, torch.nn.Module]:
+    """{checkpoint name: module}: ``flownet``, ``posenet``, ``mobile_decoder``."""
+    return {"flownet": models.flow, "posenet": models.pose, "mobile_decoder": models.mobile}
+
+
+def load_eval_models(cfg: Config, device: str | torch.device | None = None,
+                     nets: tuple[str, ...] = ("flownet", "posenet", "mobile_decoder")) -> ModelBundle:
+    """The networks of an eval CLI on ``device``, all in eval mode: flow and
+    pose from ``cfg.load_weights_folder``, the mobile decoder from
+    ``{log_dir}/{version}/models/weights_{idx}``, those of ``nets`` only."""
+    from . import checkpoints as ckpt
+
+    models = build_models(cfg, device=device)
+    models.mobile.eval()
+    mods = modules_by_name(models)
+    frozen = tuple(n for n in nets if n != "mobile_decoder")
+    folders = [cfg.load_weights_folder]
+    ckpt.load_into(cfg.load_weights_folder, mods, frozen)
+    if "mobile_decoder" in nets:
+        folders.append(ckpt.weights_folder(cfg.log_dir, cfg.version, cfg.idx))
+        ckpt.load_into(folders[-1], mods, ("mobile_decoder",))
+    print("-> Loading weights from\n" + "\n".join(folders))
+    return models
+
+
 def init_variables(models: ModelBundle, generator: torch.Generator) -> None:
     """(Re-)initialize every parameter and buffer from ``generator`` with the
     JAX package's initializers (kaiming fan-out encoders, xavier decoders,
@@ -306,3 +331,12 @@ def eval_forward(
     Hs, Ws, 2)}, mobiles {s: (N, Hs, Ws, 1)}, axisangle, translation,
     cam_T_cam), with no graph."""
     return forward_frame(cfg, models, tgt, ref)
+
+
+@torch.no_grad()
+def eval_pose(cfg: Config, models: ModelBundle, tgt: Tensor, ref: Tensor) -> Tensor:
+    """The pose net alone on a normalized (N, H, W, 3) pair → cam_T_cam (N,
+    4, 4) float32, with no graph: the forward of ``evaluate_pose``."""
+    with _autocast(cfg, tgt.device):
+        aa, t = models.pose(tgt.permute(0, 3, 1, 2), ref.permute(0, 3, 1, 2))
+    return transformation_from_parameters(aa, t)

@@ -25,3 +25,17 @@ def use_full_f32() -> None:
     epipolar geometry; the bf16 runs go through autocast and are unaffected."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def eval_chunks(n: int, batch_size: int):
+    """Yield (indices, n_valid) for batched eval over ``n`` samples.
+
+    ``indices`` always has length ``batch_size``: the last chunk is padded by
+    repeating its last index, so every batch has one shape. Callers use only
+    the first ``n_valid`` results; batching changes throughput, not results."""
+    bs = max(1, batch_size)
+    for start in range(0, n, bs):
+        idxs = list(range(start, min(start + bs, n)))
+        n_valid = len(idxs)
+        idxs += [idxs[-1]] * (bs - n_valid)
+        yield idxs, n_valid

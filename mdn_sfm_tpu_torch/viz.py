@@ -1,8 +1,8 @@
-"""Visualization and image-IO helpers of the Trainer's logging and inline
-validation — the port's own copy of that part of ``mdn_sfm_tpu.viz``:
-Middlebury flow colorization, image normalization, box drawing, KITTI 16-bit
-flow PNG reading. Vectorized numpy; ``cv2`` and ``PIL`` are imported only
-by the functions that need them.
+"""Visualization and image IO — the port's own copy of ``mdn_sfm_tpu.viz``:
+Middlebury flow colorization, the KITTI flow-error map, image normalization,
+box drawing, KITTI 16-bit flow PNG reading, image writing and result files.
+Vectorized numpy; ``cv2`` and ``PIL`` are imported only by the functions that
+need them (images are written with PIL: the card's machine has no imageio).
 """
 
 from __future__ import annotations
@@ -10,6 +10,22 @@ from __future__ import annotations
 import numpy as np
 
 UNKNOWN_FLOW_THRESH = 1e7
+
+# KITTI flow-error colour table: [lo, hi) of the normalized error → RGB
+_LC = np.array(
+    [
+        [0, 0.0625, 49, 54, 149],
+        [0.0625, 0.125, 69, 117, 180],
+        [0.125, 0.25, 116, 173, 209],
+        [0.25, 0.5, 171, 217, 233],
+        [0.5, 1, 224, 243, 248],
+        [1, 2, 254, 224, 144],
+        [2, 4, 253, 174, 97],
+        [4, 8, 244, 109, 67],
+        [8, 16, 215, 48, 39],
+        [16, 1e9, 165, 0, 38],
+    ]
+)
 
 
 def normalize_image(x: np.ndarray) -> np.ndarray:
@@ -99,6 +115,28 @@ def flow_to_image(flow: np.ndarray, max_rad: float | None = None) -> np.ndarray:
     return np.uint8(img)
 
 
+def get_flow_error_image(
+    gt_flow_occ: np.ndarray,
+    valid_flow_occ: np.ndarray,
+    valid_flow_noc: np.ndarray,
+    flow: np.ndarray,
+) -> np.ndarray:
+    """KITTI flow-error heatmap (H, W, 3) float: the error normalized by
+    min(err/3, 20·err/|gt|), coloured by :data:`_LC`, halved outside the
+    non-occluded mask and zero outside the valid mask."""
+    h, w = flow.shape[:2]
+    out = np.zeros((h, w, 3))
+    df = gt_flow_occ[..., :2] - flow[..., :2]
+    f_err = np.sqrt((df**2).sum(-1))
+    f_mag = np.sqrt((gt_flow_occ[..., :2] ** 2).sum(-1)) + 1e-6
+    n_err = np.minimum(f_err / 3.0, 20.0 * f_err / f_mag)
+    for lo, hi, r, g, b in _LC:
+        out[(lo <= n_err) & (n_err < hi)] = (r, g, b)
+    out[~valid_flow_noc.astype(bool)] *= 0.5
+    out[~valid_flow_occ.astype(bool)] = 0
+    return out
+
+
 def flow_read_png(fpath: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """KITTI 16-bit optical-flow PNG → (u, v, valid), read with cv2 (PIL
     cannot read 16-bit RGB PNGs) and turned from BGR back to RGB."""
@@ -119,6 +157,14 @@ def load_as_float(path: str) -> np.ndarray:
 
     with Image.open(path) as img:
         return np.asarray(img).astype(np.float32)
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write a uint8 image (H, W[, 3]) with PIL; the format follows the
+    file name."""
+    from PIL import Image
+
+    Image.fromarray(np.asarray(img)).save(path)
 
 
 def draw_boxes_rgb(
@@ -143,3 +189,10 @@ def draw_boxes_rgb(
             img[ya:yb + 1, xa] = color
             img[ya:yb + 1, xb] = color
     return img
+
+
+def write_result(f, errs, err_names) -> None:
+    """One line per error: its name, a colon, a tab and the value to 3
+    decimals."""
+    for err, name in zip(errs, err_names):
+        f.writelines(f"{name}: \t {err:.3f} \n")

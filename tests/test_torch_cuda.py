@@ -105,6 +105,28 @@ def test_epipolar_maps_kernel_matches_plain_at_main_path_segments(card, layout, 
         assert err <= REL_TOL * float(wnt.abs().max())
 
 
+@pytest.mark.parametrize("cli,n_maps", [("mix", 1), ("flow", 2)])
+def test_eval_batch_maps_one_launch_match_plain(card, cli, n_maps):
+    """An eval batch at the main path's width (B = 8, 192×640): evaluate_mix's
+    one map, and evaluate_flow's two in one launch (the nets' normalized flow
+    beside the GT's pixel flow with the stereo baseline as pose)."""
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import EVAL_BATCH, HEIGHT, WIDTH, eval_maps
+
+    maps = eval_maps(cli, EVAL_BATCH, HEIGHT, WIDTH, seed=3)
+    assert [m.scale for m in maps] == [(WIDTH, HEIGHT), (1.0, 1.0)][:n_maps]
+    n0 = E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps
+    got = E.epipolar_abs_residual_maps(maps)
+    want = E.epipolar_abs_residual_maps_reference(maps)
+    torch.cuda.synchronize()
+    assert (E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps) == (n0[0] + 1, n0[1] + n_maps)
+    for g, wnt in zip(got, want):
+        assert g.shape == (EVAL_BATCH, HEIGHT, WIDTH) and torch.isfinite(g).all()
+        err = float((g - wnt).abs().max())
+        print(f"eval {cli} {tuple(g.shape)} max_abs_err {err}")
+        assert err <= REL_TOL * float(wnt.abs().max())
+
+
 def test_epipolar_maps_kernel_matches_plain_at_ragged_odd_width(card):
     """Odd W takes the scalar path, even W the vector path, in one launch."""
     from mdn_sfm_tpu_torch.ops import epipolar as E

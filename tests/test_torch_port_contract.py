@@ -20,6 +20,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the Trainer's slice: checkpoints, the KITTI data path and the host helpers
 NEW_MODULES = ("trainer", "checkpoints", "native", "labels", "metrics", "viz", "data.splits",
                "data.kitti", "data.loader", "data.cache", "data.eval_datasets")
+# the eval slice: the four eval CLIs and the README-table harness
+EVAL_CLIS = ("evaluate_mix", "evaluate_mask", "evaluate_flow", "evaluate_pose", "reproduce_readme_table")
 
 
 def _run(*args: str, timeout: int = 300):
@@ -50,7 +52,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 25
-    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES} <= names
+    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES + EVAL_CLIS} <= names
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
@@ -82,6 +84,17 @@ def test_train_cli_refuses_silent_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     res = _run("-c", "from mdn_sfm_tpu_torch.train import main; main(['--synthetic', '--limit_train_samples', '4'])")
+    assert res.returncode != 0 and "CUDA is not available" in res.stderr
+
+
+@pytest.mark.parametrize("cli", EVAL_CLIS)
+def test_eval_cli_refuses_silent_cpu_fallback(cli, tmp_path):
+    """Without --device an eval CLI runs on the card or raises before it
+    reads anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    argv = ["--mode_versions", "SN=v1:0"] if cli == "reproduce_readme_table" else []
+    res = _run("-m", f"mdn_sfm_tpu_torch.{cli}", "--data_root", str(tmp_path), *argv)
     assert res.returncode != 0 and "CUDA is not available" in res.stderr
 
 
@@ -128,6 +141,28 @@ def test_train_flags_match_jax():
     t = tc.parse_train_config(argv)
     j = jc.parse_train_config(argv)
     assert json.loads(t.to_json()) == json.loads(j.to_json())
+
+
+def _flags(add_args) -> dict:
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    add_args(parser)
+    return {a.dest: (tuple(a.option_strings), a.default, a.nargs, a.const, a.choices, type(a).__name__)
+            for a in parser._actions if a.dest != "help"}
+
+
+def test_eval_flags_match_jax():
+    """The eval flags: the same names, defaults and kinds, and the same
+    config from the same argv."""
+    assert _flags(tc.add_eval_args) == _flags(jc.add_eval_args)
+    argv = ["--mode", "TG", "--height", "192", "--width", "640", "--version", "v3", "--idx", "14",
+            "--binary_threshold", "0.3", "--eval_batch_size", "8", "--scales", "0", "1",
+            "--save_pred_masks", "--pred_errors", "--compute_dtype", "float32"]
+    assert json.loads(tc.parse_eval_config(argv).to_json()) == json.loads(jc.parse_eval_config(argv).to_json())
+    cfg, device = tc.parse_eval_cli("eval", argv + ["--device", "cpu"])
+    assert device == "cpu" and json.loads(cfg.to_json()) == json.loads(jc.parse_eval_config(argv).to_json())
+    assert tc.parse_eval_cli("eval", [])[1] == "cuda"
 
 
 @pytest.mark.parametrize(
