@@ -18,6 +18,8 @@ Layout
 - :mod:`mdn_sfm_tpu_torch.training`  — the train step (frozen flow/pose, Adam on the decoder)
 - :mod:`mdn_sfm_tpu_torch.train`     — ``python -m mdn_sfm_tpu_torch.train --synthetic``
 - ``evaluate_{mix,mask,flow,pose}``, ``reproduce_readme_table`` — the eval CLIs
+- :mod:`mdn_sfm_tpu_torch.masks`     — DS/DC instance masks: PNG providers, the Mask R-CNN R50-FPN
+- ``precompute_masks`` — ``python -m mdn_sfm_tpu_torch.precompute_masks`` (1024-edge union PNGs)
 
 Public geometry and loss functions keep the JAX package's NHWC layout (flow
 is ``(B, H, W, 2)``); the ``nn.Module``s take and return NCHW tensors.

@@ -13,6 +13,7 @@ import dataclasses
 import enum
 import json
 import os
+import sys
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -177,6 +178,24 @@ class Config:
             raise NotImplementedError(
                 "num_data_shards > 1 (data parallelism) is not implemented by the PyTorch port yet"
             )
+        # DS/DC with the live provider below the reference's shortest-edge-1024
+        # inference resolution trains on measurably different union masks:
+        # warn once, so a README-comparison run is never silently off-spec
+        ref_equiv_scale = 1024 / min(self.height, self.width)
+        if (self.mode in (Mode.DS, Mode.DC) and self.mask_provider == "maskrcnn"
+                and self.d2_infer_scale < ref_equiv_scale):
+            global _WARNED_D2_SCALE
+            if not _WARNED_D2_SCALE:
+                _WARNED_D2_SCALE = True
+                print(
+                    f"WARNING: mode={self.mode.value} with the live maskrcnn provider at "
+                    f"d2_infer_scale={self.d2_infer_scale} (< reference-equivalent "
+                    f"{ref_equiv_scale:.1f} for {self.height}x{self.width}) trains on union masks that "
+                    "deviate from the reference's 1024-edge pipeline. For strict DS/DC reproduction "
+                    "precompute 1024-edge masks with python -m mdn_sfm_tpu_torch.precompute_masks and "
+                    "use mask_provider=precomputed.",
+                    file=sys.stderr,
+                )
         return self
 
     def to_json(self) -> str:
@@ -201,7 +220,6 @@ _NOT_IMPLEMENTED = (
     "remat",
     "accum_steps",
     "fine_tune_flow_motion",
-    "mask_provider",
     "bn_frozen_eval",
     "skip_nonfinite_updates",
     # the plain epipolar map on the card comes back with the gradient-carrying
@@ -212,6 +230,7 @@ _NOT_IMPLEMENTED = (
     "steps_per_dispatch",
 )
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
+_WARNED_D2_SCALE = False
 _TUPLE_FIELDS = ("scales", "frame_ids", "models_to_load")
 
 

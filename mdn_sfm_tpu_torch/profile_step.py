@@ -1,9 +1,12 @@
 """Where the main path's train step spends its time, on the card.
 
-    python -m mdn_sfm_tpu_torch.profile_step [--steps 10] [--trace DIR]
+    python -m mdn_sfm_tpu_torch.profile_step [--steps 10] [--trace DIR] [--mode DS|DC]
 
 Runs the TG step at 640×192, batch 4, bf16 (random weights from a seed)
-through ``training.train_step`` in windows of ``--steps`` steps each:
+through ``training.train_step`` in windows of ``--steps`` steps each. With
+``--mode DS`` or ``DC`` the step runs the live Mask R-CNN provider fused
+into it (random weights, ``d2_infer_scale`` 2: 384×1280,
+``--d2_score_thresh``).
 
 1. a window with no profiler, then ``--rounds`` times a device-only trace
    (``ProfilerActivity.CUDA``: no host ops recorded) followed by another
@@ -25,6 +28,7 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -59,11 +63,22 @@ def main() -> None:
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--trace", type=str, default="")
+    ap.add_argument("--mode", type=str, default="TG", choices=["TG", "DS", "DC"])
+    ap.add_argument("--d2_score_thresh", type=float, default=0.3)
     args = ap.parse_args()
 
     device = resolve_device()
-    cfg = Config(height=192, width=640, batch_size=4, mode=Mode.TG, threshold=9.22,
-                 w_d2_sim=0.0, compute_dtype="bfloat16").validate()
+    provider = None
+    if args.mode == "TG":
+        cfg = Config(height=192, width=640, batch_size=4, mode=Mode.TG, threshold=9.22,
+                     w_d2_sim=0.0, compute_dtype="bfloat16").validate()
+    else:
+        from .masks.maskrcnn import MaskRCNNProvider
+
+        cfg = Config(height=192, width=640, batch_size=4, mode=Mode(args.mode), threshold=9.22,
+                     compute_dtype="bfloat16", mask_provider="maskrcnn", d2_allow_random_weights=True,
+                     d2_score_thresh=args.d2_score_thresh, log_dir=tempfile.mkdtemp()).validate()
+        provider = MaskRCNNProvider(cfg, device)
     models = T.build_models(cfg, torch.Generator().manual_seed(0), device)
     opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -75,7 +90,7 @@ def main() -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            T.train_step(cfg, models, opt, batch, generator=gen)
+            T.train_step(cfg, models, opt, batch, generator=gen, provider=provider)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
 
@@ -116,7 +131,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "profile": "train_step TG 640x192 bs4 bf16",
+        "profile": f"train_step {args.mode} 640x192 bs4 bf16",
+        "d2_score_thresh": args.d2_score_thresh if provider is not None else None,
         "card": smi,
         "steps_per_window": args.steps,
         "step_ms_no_profiler": plain_ms,

@@ -32,6 +32,7 @@ from .data.augment import augment_batch
 from .data.splits import repo_root, sample_key, shard_for_host
 from .geometry import gauss_distance_weight
 from .losses import epipolar_loss_terms
+from .masks import build_mask_provider
 from .ops.epipolar import EpipolarMap, epipolar_abs_residual_maps
 from .utils import resolve_device
 from .viz import flow_to_image, normalize_image, sec_to_hm_str
@@ -109,6 +110,21 @@ class Trainer:
                                        num_workers=cfg.num_workers, drop_last=True)
         self.steps_per_epoch = len(self.train_loader)
         self.num_total_steps = self.steps_per_epoch * cfg.num_epochs
+        self.mask_provider = build_mask_provider(cfg, self.device)
+        # the precomputed provider serves zeros for a missing file, so a
+        # mask_dir or key-scheme mismatch would train DS/DC against all-zero
+        # masks: check every key, fail at 0 hits, report the coverage
+        if cfg.mask_provider == "precomputed" and self.sample_keys:
+            hits = sum(os.path.exists(os.path.join(cfg.mask_dir, f"{k}.png")) for k in self.sample_keys)
+            n = len(self.sample_keys)
+            if hits == 0:
+                raise FileNotFoundError(
+                    f"mask_provider=precomputed found 0/{n} sample keys in {cfg.mask_dir!r} (e.g. "
+                    f"{self.sample_keys[0]}.png) — every mask would load as zeros. Generate masks with "
+                    "python -m mdn_sfm_tpu_torch.precompute_masks (the key scheme is "
+                    "data/splits.py::sample_key).")
+            print(f"precomputed masks: {hits}/{n} sample keys covered ({hits / n:.1%}); "
+                  "missing keys train with all-zero masks")
 
         # inline validation on KITTI-2015 scene-flow pairs, when on disk
         self.val_dataset = None
@@ -186,8 +202,15 @@ class Trainer:
         # checkpoints' position (the LR follows Adam's own count)
         self.step = self.start_step
 
+        # a live Mask R-CNN provider runs inside the step on the augmented
+        # frame (d2_fuse_step); its weights are frozen, rebuilt from their
+        # .pth and never checkpointed
+        self.fused_provider = (self.mask_provider if cfg.d2_fuse_step and hasattr(self.mask_provider, "union_fn")
+                               else None)
+
         def step_fn(batch: dict, generator: torch.Generator):
-            return T.train_step(cfg, self.models, self.opt, batch, generator=generator)
+            return T.train_step(cfg, self.models, self.opt, batch, generator=generator,
+                                provider=self.fused_provider)
 
         self.step_fn = step_fn
 
@@ -244,14 +267,26 @@ class Trainer:
             self._pending_save_error = None
             raise RuntimeError("async checkpoint write failed") from err
 
-    def _device_batch(self, arrays: tuple) -> dict:
+    def _device_batch(self, arrays: tuple, keys: list[str] | None = None) -> dict:
         """Host arrays → the device, from pinned memory without a sync on
-        the card."""
+        the card. With ``keys`` (the batch's sample keys) and a mask provider
+        that is not fused into the step, the batch carries its instance
+        masks: a keyed lookup, or the live provider on the RAW host target
+        frame. (Deviation, as in the JAX package: the reference's detectron2
+        sees the augmented frame; only the fused path reproduces that.)"""
         colors, K = (torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
         if self.device.type == "cuda":
             colors, K = colors.pin_memory(), K.pin_memory()
-        return {"colors_u8": colors.to(self.device, non_blocking=True),
-                "K": K.to(self.device, non_blocking=True)}
+        batch = {"colors_u8": colors.to(self.device, non_blocking=True),
+                 "K": K.to(self.device, non_blocking=True)}
+        if keys is not None and self.mask_provider is not None and self.fused_provider is None:
+            cfg = self.cfg
+            if hasattr(self.mask_provider, "union_masks_from_images"):
+                masks = self.mask_provider.union_masks_from_images(batch["colors_u8"][:, 0], cfg.height, cfg.width)
+            else:
+                masks = torch.from_numpy(self.mask_provider.union_masks(keys, cfg.height, cfg.width))
+            batch["instance_mask"] = masks.to(self.device, non_blocking=True)
+        return batch
 
     def train(self):
         """The epoch loop. SIGTERM/SIGINT during it checkpoint at the next
@@ -334,7 +369,7 @@ class Trainer:
                 self._stop_profiler()
             before = time.time()
             self.sample_history.append((self.step, [int(i) for i in idxs]))
-            batch = self._device_batch(arrays)
+            batch = self._device_batch(arrays, [self.sample_keys[int(i)] for i in idxs])
             metrics, aux = self.step_fn(batch, T.step_generator(cfg.seed, self.step, self.device))
 
             early = batch_idx % cfg.log_frequency == 0 and self.step < 2000
@@ -424,16 +459,21 @@ class Trainer:
         flows, mobiles, _, _, cam = T.eval_forward(cfg, self.models, tgt, ref)
         gw = (gauss_distance_weight(cfg.height, cfg.width, 1, cfg.gauss_sigma1, cfg.gauss_sigma2, dev)[0]
               if cfg.mode == Mode.TG else None)
+        # the live provider's union mask on the val frame, as the reference
+        # runs detectron2 there; a keyed or absent provider has none
+        union = None
+        if hasattr(self.mask_provider, "union_masks_from_images"):
+            tgt_u8 = ((tgt * 0.225 + 0.45) * 255.0).clamp(0, 255).to(torch.uint8)
+            union = self.mask_provider.union_masks_from_images(tgt_u8, cfg.height, cfg.width)
         viz_cfg = cfg
-        if cfg.mode in (Mode.DS, Mode.DC):
-            # DS/DC post-processing needs an instance mask the val path has
-            # not: log SN-style maps instead
+        if union is None and cfg.mode in (Mode.DS, Mode.DC):
+            # DS/DC post-processing needs an instance mask: log SN-style maps
             viz_cfg = dataclasses.replace(cfg, mode=Mode.SN, w_d2_sim=0.0)
         inv_K = torch.from_numpy(inputs["inv_K"])[None].to(dev)
         (resid,) = epipolar_abs_residual_maps(
             [EpipolarMap(flows[0].float(), (float(cfg.width), float(cfg.height)), inv_K,
                          cam[:, :3, :3], cam[:, :3, 3])])
-        epip_loss, epip_map, epip_ori = epipolar_loss_terms(viz_cfg, resid, mobiles[0], None, gw)
+        epip_loss, epip_map, epip_ori = epipolar_loss_terms(viz_cfg, resid, mobiles[0], union, gw)
 
         w = self.writers["val"]
         w.add_scalar("epipolar loss", float(epip_loss), self.step)
@@ -450,6 +490,8 @@ class Trainer:
             inst = np.clip(np.asarray(inputs["instance_img"]), 0, 255).astype(np.uint8)
             boxes = np.array([a["bbox"] for a in anns], np.float32).reshape(-1, 4)
             w.add_image("0/instances", draw_boxes_rgb(inst, boxes, None), self.step, dataformats="HWC")
+        if union is not None:
+            w.add_image("0/instance_union", union[0][None].cpu().numpy(), self.step)
 
     # ------------------------------------------------------------- tools
 
@@ -498,11 +540,11 @@ class Trainer:
             models.pose.load_state_dict(self.models.pose.state_dict())
             opt = T.make_optimizer(new_cfg, models, self.steps_per_epoch)
             last = None
-            for bi, (arrays, _idxs) in enumerate(self.train_loader):
+            for bi, (arrays, idxs) in enumerate(self.train_loader):
                 if bi >= batches_per_value:
                     break
-                batch = self._device_batch(arrays)
-                metrics, _ = T.train_step(new_cfg, models, opt, batch,
+                batch = self._device_batch(arrays, [self.sample_keys[int(i)] for i in idxs])
+                metrics, _ = T.train_step(new_cfg, models, opt, batch, provider=self.fused_provider,
                                           generator=T.step_generator(new_cfg.seed, bi, self.device))
                 if self.writers and bi % 50 == 0:
                     for k in ("loss", "epip", "smooth", "consis"):

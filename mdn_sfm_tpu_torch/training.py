@@ -278,8 +278,9 @@ def loss_from_batch(
 
 # --------------------------------------------------------------- train step
 
-# the stages of train_step, as torch.profiler labels them
-STAGES = ("augment", "forward_loss", "backward", "optimizer")
+# the stages of train_step, as torch.profiler labels them ("instance_masks"
+# only with a fused mask provider)
+STAGES = ("augment", "instance_masks", "forward_loss", "backward", "optimizer")
 
 
 def step_generator(seed: int, step: int, device: str | torch.device) -> torch.Generator:
@@ -298,21 +299,29 @@ def train_step(
     batch: dict,
     generator: torch.Generator | None = None,
     draws: dict | None = None,
+    provider=None,
 ) -> tuple[dict[str, Tensor], LossAux]:
     """One optimizer step on ``batch`` = {'colors_u8': (B, F, H, W, 3) uint8,
     'K': (B, 4, 4)[, 'instance_mask': (B, Hm, Wm)]}, on the batch's device.
 
     Augmentation draws come from ``draws`` or ``generator`` (per step:
-    :func:`step_generator`). Returns (metrics, aux) as the JAX step does:
-    the metrics as 0-d device tensors (loss/epip/smooth/consis[/photo],
-    grad_norm; reading one syncs) and the loss's :class:`LossAux` maps,
-    detached. Its stages carry the labels of :data:`STAGES` for
-    ``torch.profiler``."""
+    :func:`step_generator`). With a live mask ``provider`` (``union_fn``,
+    ``d2_fuse_step``) and no mask in the batch, the DS/DC instance masks are
+    inferred inside the step, with no graph, from the AUGMENTED target frame
+    ×255 — the frame the reference's detectron2 sees. Returns (metrics, aux)
+    as the JAX step does: the metrics as 0-d device tensors
+    (loss/epip/smooth/consis[/photo], grad_norm; reading one syncs) and the
+    loss's :class:`LossAux` maps, detached. Its stages carry the labels of
+    :data:`STAGES` for ``torch.profiler``."""
     with record_function("augment"):
-        colors, inv_Ks, _ = augment_batch(cfg, batch["colors_u8"], batch["K"], draws=draws,
-                                          generator=generator)
+        colors, inv_Ks, raw0 = augment_batch(cfg, batch["colors_u8"], batch["K"], draws=draws,
+                                             generator=generator)
+    instance_mask = batch.get("instance_mask")
+    if instance_mask is None and provider is not None:
+        with record_function("instance_masks"):
+            instance_mask = provider.union_fn(raw0 * 255.0)  # no graph: union_fn runs under no_grad
     with record_function("forward_loss"):
-        loss, (losses, aux) = loss_from_batch(cfg, models, colors, inv_Ks, batch.get("instance_mask"))
+        loss, (losses, aux) = loss_from_batch(cfg, models, colors, inv_Ks, instance_mask)
     with record_function("backward"):
         grads = torch.autograd.grad(loss, opt.params)
     with record_function("optimizer"):

@@ -27,6 +27,14 @@ def use_full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def divisor(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``x``'s type on its device, to divide by.
+    On the card PyTorch divides by a Python number as a multiply by its
+    reciprocal, which rounds otherwise than an IEEE division (the CPU's, the
+    kernels', XLA's); by a tensor it divides."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
 def eval_chunks(n: int, batch_size: int):
     """Yield (indices, n_valid) for batched eval over ``n`` samples.
 

@@ -155,3 +155,69 @@ def adam_state_from_optax(opt_state: Any, param_names: list[str]) -> dict:
         for i, n in enumerate(param_names)
     }
     return {"state": state, "param_groups": [{"params": list(range(len(param_names)))}]}
+
+
+# ------------------------------------------------------------- Mask R-CNN
+
+_D2_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _d2_key(path: tuple) -> tuple[str, str]:
+    """Flax path (without the collection) of the JAX ``MaskRCNN`` → (the
+    detectron2 key, kind ∈ {conv, convT, fc, plain}): the inverse of
+    ``mdn_sfm_tpu.masks.maskrcnn.torch_d2_key_to_flax``."""
+    top, leaf = path[0], path[-1]
+    if top == "bottom_up":
+        name = path[1]
+        if name in ("stem_conv1", "stem_bn1"):
+            block = "backbone.bottom_up.stem.conv1"
+        else:
+            m = re.fullmatch(r"(res\d)_(\d+)", name)
+            if m is None:
+                raise KeyError(path)
+            sub = path[2]
+            layer = "shortcut" if sub.startswith("downsample") else f"conv{sub[-1]}"
+            block = f"backbone.bottom_up.{m.group(1)}.{m.group(2)}.{layer}"
+            name = sub
+        if name.endswith("conv") or name.startswith("conv") or name == "stem_conv1":
+            return f"{block}.weight", "conv"
+        return f"{block}.norm.{_D2_BN_LEAF[leaf]}", "plain"
+    torch_leaf = "weight" if leaf == "kernel" else "bias"
+    name = path[1]
+    if top == "fpn":
+        prefix = "backbone"
+    elif top == "rpn_head":
+        prefix = "proposal_generator.rpn_head"
+    elif top == "box_head":
+        prefix = "roi_heads.box_head" if name in ("fc1", "fc2") else "roi_heads.box_predictor"
+    elif top == "mask_head":
+        prefix = "roi_heads.mask_head"
+    else:
+        raise KeyError(path)
+    if leaf != "kernel":
+        kind = "plain"
+    elif top == "box_head":
+        kind = "fc"
+    else:
+        kind = "convT" if name == "deconv" else "conv"
+    return f"{prefix}.{name}.{torch_leaf}", kind
+
+
+def maskrcnn_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX ``MaskRCNN``'s variables ({'params': …, 'batch_stats': …} of
+    numpy arrays) → the detectron2-keyed state dict the port's ``MaskRCNN``
+    loads with ``load_state_dict(strict=True)``: conv kernels HWIO → OIHW,
+    the deconv's kernel spatially flipped and → (in, out, kh, kw), dense
+    kernels transposed."""
+    sd: dict[str, torch.Tensor] = {}
+    for (_coll, *path), value in _flatten(variables).items():
+        key, kind = _d2_key(tuple(path))
+        arr = np.asarray(value, dtype=np.float32)
+        if kind == "conv":
+            arr = arr.transpose(3, 2, 0, 1)
+        elif kind == "convT":
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif kind == "fc":
+            arr = arr.T
+        sd[key] = torch.from_numpy(np.array(arr, order="C"))
+    return sd

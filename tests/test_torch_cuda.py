@@ -155,3 +155,83 @@ def test_epipolar_maps_refuse_a_list_across_devices(card, cpu_first):
     with pytest.raises(ValueError, match="on one device"):
         E.epipolar_abs_residual_maps(on_cpu + on_card if cpu_first else on_card + on_cpu)
     assert E.epipolar_abs_residual_maps.launches == n0
+
+
+# ------------------------------------------------ the Mask R-CNN's kernels
+
+
+def _nms_inputs(n_img, n, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(n_img, n, 2, generator=g) * 400
+    boxes = torch.cat([xy, xy + 1 + torch.rand(n_img, n, 2, generator=g) * 80], -1)
+    scores = torch.randn(n_img, n, generator=g)
+    scores = torch.where(scores > 0.3, scores, torch.zeros(()))  # ties at 0
+    scores[-1, : n // 2] = float("-inf")
+    if n > 3:
+        boxes[0, 3, 2] = boxes[0, 3, 0]                           # a box with no area
+        scores[0, 3] = 10.0
+    return boxes.to(device), scores.to(device)
+
+
+@pytest.mark.parametrize("n_img,n,max_out,thresh", [(4, 1280, 256, 0.7), (4, 512, 32, 0.5), (1, 5000, 1000, 0.7),
+                                                    (2, 8192, 64, 0.7), (3, 1, 4, 0.5)])
+def test_nms_kernel_equals_plain(card, n_img, n, max_out, thresh):
+    from mdn_sfm_tpu_torch.ops import nms as N
+
+    boxes, scores = _nms_inputs(n_img, n, seed=n, device=card)
+    n0 = N.nms.launches
+    keep, valid = N.nms(boxes, scores, thresh, max_out)
+    want_k, want_v = N.nms_reference(boxes, scores, thresh, max_out)
+    torch.cuda.synchronize()
+    assert N.nms.launches == n0 + 1
+    assert torch.equal(keep, want_k) and torch.equal(valid, want_v)
+    with pytest.raises(ValueError, match="boxes an image"):
+        N.nms(torch.zeros(1, N.MAX_BOXES + 1, 4, device=card), torch.zeros(1, N.MAX_BOXES + 1, device=card), 0.5, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_box,out_size", [(256, 7), (32, 14)])
+def test_roi_align_kernel_equals_plain(card, dtype, n_box, out_size):
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    g = torch.Generator().manual_seed(n_box)
+    feats = [torch.randn(4, h, w, 256, generator=g).to(card, dtype) for h, w in ((96, 320), (48, 160), (24, 80), (12, 40))]
+    xy = torch.rand(4, n_box, 2, generator=g) * torch.tensor([1280.0, 384.0])
+    boxes = torch.cat([xy, xy + torch.exp(torch.rand(4, n_box, 2, generator=g) * 6)], -1)
+    boxes[0, :3] = torch.tensor([[0.0, 0.0, 224.0, 224.0], [5.0, 5.0, 117.0, 117.0], [0.0, 0.0, 0.0, 0.0]])
+    boxes = boxes.to(card)
+    n0 = RA.multilevel_roi_align.launches
+    got = RA.multilevel_roi_align(feats, boxes, out_size)
+    want = RA.roi_align_reference(feats, boxes, out_size)
+    torch.cuda.synchronize()
+    assert RA.multilevel_roi_align.launches == n0 + 1 and got.dtype == dtype
+    tol = (1e-6 if dtype == torch.float32 else 2.0**-8) * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_fused_ds_step_launches_each_kernel(card, tmp_path):
+    """A fused DS step at 64×96 on the card: 1 epipolar launch (8 maps), 2
+    NMS and 2 ROIAlign launches."""
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+    from mdn_sfm_tpu_torch.masks.maskrcnn import MaskRCNNProvider
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops import nms as N
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    cfg = Config(height=64, width=96, batch_size=2, mode=Mode.DS, mask_provider="maskrcnn",
+                 d2_allow_random_weights=True, d2_score_thresh=0.05, log_dir=str(tmp_path)).validate()
+    provider = MaskRCNNProvider(cfg, card)
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), card)
+    opt = T.make_optimizer(cfg, models, 10)
+    colors, K = synthetic_batch(2, 64, 96, seed=0)
+    batch = {"colors_u8": torch.from_numpy(colors).to(card), "K": torch.from_numpy(K).to(card)}
+    counts = (E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps, N.nms.launches,
+              RA.multilevel_roi_align.launches)
+    metrics, _ = T.train_step(cfg, models, opt, batch, generator=T.step_generator(0, 0, card), provider=provider)
+    torch.cuda.synchronize()
+    after = (E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps, N.nms.launches,
+             RA.multilevel_roi_align.launches)
+    assert [a - b for a, b in zip(after, counts)] == [1, 8, 2, 2]
+    assert torch.isfinite(metrics["loss"])

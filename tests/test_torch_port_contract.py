@@ -22,6 +22,8 @@ NEW_MODULES = ("trainer", "checkpoints", "native", "labels", "metrics", "viz", "
                "data.kitti", "data.loader", "data.cache", "data.eval_datasets")
 # the eval slice: the four eval CLIs and the README-table harness
 EVAL_CLIS = ("evaluate_mix", "evaluate_mask", "evaluate_flow", "evaluate_pose", "reproduce_readme_table")
+# the DS/DC slice: the mask providers, the Mask R-CNN and its two kernels
+MASK_MODULES = ("masks", "masks.providers", "masks.maskrcnn", "precompute_masks", "ops.nms", "ops.roi_align")
 
 
 def _run(*args: str, timeout: int = 300):
@@ -52,7 +54,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 25
-    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES + EVAL_CLIS} <= names
+    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES} <= names
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
@@ -171,7 +173,6 @@ def test_eval_flags_match_jax():
         ("remat", True),
         ("accum_steps", 2),
         ("fine_tune_flow_motion", True),
-        ("mask_provider", "precomputed"),
         ("bn_frozen_eval", False),
         ("num_data_shards", 2),
         ("skip_nonfinite_updates", True),
@@ -182,6 +183,21 @@ def test_eval_flags_match_jax():
 def test_unimplemented_options_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tc.Config(**{field: value}).validate()
+
+
+@pytest.mark.parametrize("provider", ["none", "precomputed", "maskrcnn"])
+def test_mask_provider_options_validate(provider):
+    """The DS/DC mask providers are the port's too: every value the JAX
+    package takes validates."""
+    assert tc.Config(mask_provider=provider).validate().mask_provider == provider
+
+
+def test_precompute_masks_cli_refuses_silent_cpu_fallback(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    res = _run("-m", "mdn_sfm_tpu_torch.precompute_masks", "--data_path", str(tmp_path), "--allow_random_weights",
+               "--limit", "1")
+    assert res.returncode != 0 and "CUDA is not available" in res.stderr
 
 
 @pytest.mark.parametrize("kw", [dict(height=100), dict(frame_ids=(1, 0, -1)), dict(compute_dtype="float16")])
