@@ -16,7 +16,14 @@ with a small f32 world on the card against the CPU, and drives DS and DC
 training with the live Mask R-CNN R50-FPN fused into the step at 384×1280
 (its NMS and ROIAlign kernels held against their plain versions on the
 inputs the step and the 640×2048 backend give them), a DS run on masks the
-backend precomputes, and a small f32 DS step on the card against the CPU.
+backend precomputes, and a small f32 DS step on the card against the CPU;
+and the step options at the main path's width (fine-tuning flow and pose,
+with remat and with accum_steps=2; train-mode BN with the frozen nets), a
+device trace of the fine-tune step, small f32 option steps on the card
+against the CPU, a skipped non-finite step with no added host sync, the
+Trainer fine-tuning (checkpoints of the three nets, an exact resume), and a
+short synthetic two-stage rehearsal (phase 1 photometric fine-tuning, the
+calibration, phase 2 in TG and in DS on GT masks and on the live Mask R-CNN).
 
 Prints one JSON object per phase, the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -95,6 +102,30 @@ ROI_FLOP_PER_OUTPUT = 57
 # detections of a small f32 Mask R-CNN on the card against the CPU, on valid
 # slots: tests/test_maskrcnn.py's JAX-against-torch tolerances
 DET_SCORE_ATOL, DET_BOX_ATOL, DET_MASK_ATOL = 5e-4, 0.1, 2e-3
+
+# Phase 9, the step options: each configuration at the main path's width,
+# and the rehearsal (tools/synthetic_e2e.py's round-5 world at 64×128, B=4)
+OPTION_STEPS = 20       # timed steps a configuration (≥ 20)
+OPTION_WARMUP = 3
+OPTION_CONFIGS = (
+    ("fine_tune", dict(fine_tune_flow_motion=True)),
+    ("fine_tune_remat", dict(fine_tune_flow_motion=True, remat=True)),
+    ("fine_tune_accum2", dict(fine_tune_flow_motion=True, accum_steps=2)),
+    ("bn_train_frozen_nets", dict(bn_frozen_eval=False)),
+)
+TRACE_STEPS = 5         # fine-tune steps in the device trace
+# f32 option steps on the card against the CPU: phase 5's step-0 bound. With
+# fine-tuning and train-mode BN, step 1 takes the change that one ulp of the
+# flow params makes on the CPU (tests/test_torch_step_options.py::
+# test_fine_tune_steps_amplify_one_ulp, measured 2.6e-3): Adam's first update
+# amplifies rounding through layer4's batch statistics, and the same holds
+# with accum_steps=2, whose microbatches' statistics are smaller still
+OPTION_RTOLS = (1e-5, 3e-3)
+REHEARSAL_ARGV = ["--height", "64", "--width", "128", "--batch_size", "4", "--eval_batch", "8",
+                  "--steps1", "300", "--steps2", "200", "--k_steps", "50", "--tg_steps_mult", "3",
+                  "--tg_lr_mult", "1.0", "--modes", "TG,DS", "--ds_providers", "semantic_gt,maskrcnn@2",
+                  "--bright_world", "--obj_shift", "6", "--obj_size", "16"]
+EPE_CUT = 0.7           # phase 1 must bring the eval flow EPE under this share of its start
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s
 # and float32 FLOP/s outside the tensor cores.
@@ -1137,6 +1168,390 @@ def mask_kernel_entries(ds: dict) -> list[dict]:
     return out
 
 
+def _options_config(**kw):
+    from mdn_sfm_tpu_torch.config import Config, Mode
+
+    return Config(height=HEIGHT, width=WIDTH, batch_size=BATCH, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                  compute_dtype="bfloat16", **kw).validate()
+
+
+def _snapshot(models) -> dict:
+    """Copies of every net's params and buffers, by net."""
+    from mdn_sfm_tpu_torch import training as T
+
+    return {n: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for n, m in T.modules_by_name(models).items()}
+
+
+def _changed(models, before: dict, buffers: bool) -> dict:
+    """{net: entries changed} over the params (``buffers``: over the BN
+    running statistics)."""
+    from mdn_sfm_tpu_torch import training as T
+
+    out = {}
+    for n, m in T.modules_by_name(models).items():
+        names = [k for k, _ in (m.named_buffers() if buffers else m.named_parameters())]
+        out[n] = sum(not torch_equal(m.state_dict()[k], before[n][k]) for k in names)
+    return out
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def option_run(name: str, opts: dict, batches: list, smi: str) -> dict:
+    """OPTION_STEPS steps of one step-option configuration at 640×192 bs4
+    bf16 after OPTION_WARMUP: step times, peak memory, the epipolar launches
+    and maps in the timed steps (counts set to 0 just before), finite
+    losses, and which nets' params and BN statistics moved."""
+    import torch
+
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+
+    cfg = _options_config(**opts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
+    before = _snapshot(models)
+    for i in range(OPTION_WARMUP):
+        T.train_step(cfg, models, opt, batches[i % 4], generator=T.step_generator(cfg.seed, i, "cuda"))
+    torch.cuda.synchronize()
+    E.epipolar_abs_residual_maps.launches = E.epipolar_abs_residual_maps.maps = 0
+    losses, step_s = [], []
+    for i in range(OPTION_STEPS):
+        t0 = time.perf_counter()
+        m, _ = T.train_step(cfg, models, opt, batches[i % 4],
+                            generator=T.step_generator(cfg.seed, OPTION_WARMUP + i, "cuda"))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in m.items()})
+    launches, nmaps = E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps
+    params, stats = _changed(models, before, False), _changed(models, before, True)
+    med = statistics.median(step_s)
+    rec = {"config": name, "options": opts, "steps": OPTION_STEPS, "median_step_ms": 1e3 * med,
+           "p90_step_ms": 1e3 * sorted(step_s)[int(0.9 * (OPTION_STEPS - 1))], "min_step_ms": 1e3 * min(step_s),
+           "frames_per_s": BATCH / med, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "epipolar_launches": launches, "epipolar_maps": nmaps,
+           "params_changed": params, "bn_statistics_changed": stats,
+           "first_loss": losses[0]["loss"], "last_loss": losses[-1]["loss"],
+           "last_grad_norm": losses[-1]["grad_norm"]}
+    finite = all(math.isfinite(x) for d in losses for x in d.values())
+    if cfg.fine_tune_flow_motion:  # the plain map with autograd, as JAX takes plain XLA
+        counts_ok = launches == 0 and nmaps == 0
+        moved = all(params[n] for n in ("flownet", "posenet", "mobile_decoder")) and not any(stats.values())
+    else:
+        counts_ok = launches == OPTION_STEPS and nmaps == 8 * OPTION_STEPS
+        moved = (params["mobile_decoder"] and not params["flownet"] and not params["posenet"]
+                 and stats["flownet"] and stats["posenet"])
+    ok = finite and counts_ok and bool(moved)
+    emit({"phase": "step_option", **rec, "losses_finite": finite, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the {name} step failed (see its line)")
+    return rec
+
+
+def fine_tune_trace(batches: list) -> dict:
+    """A device-only torch.profiler trace of TRACE_STEPS fine-tune steps:
+    launches, busy ms and idle share a step; and the plain epipolar map
+    (the step's 8 maps, forward and backward) timed alone, beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import step_maps
+    from mdn_sfm_tpu_torch.profile_step import _device_kernels, _union_us
+
+    cfg = _options_config(fine_tune_flow_motion=True)
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
+    for i in range(2):
+        T.train_step(cfg, models, opt, batches[i], generator=T.step_generator(cfg.seed, i, "cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(TRACE_STEPS):
+            T.train_step(cfg, models, opt, batches[i % 4], generator=T.step_generator(cfg.seed, 2 + i, "cuda"))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / TRACE_STEPS
+    kernels = _device_kernels(prof)
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / TRACE_STEPS
+    by_name: dict = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    # the plain map as the fine-tune loss runs it: the step's 8 maps from
+    # flow that requires grad, forward and backward
+    maps = [m._replace(flow=m.flow.detach().requires_grad_()) for m in step_maps("loss", BATCH, HEIGHT, WIDTH, seed=7)]
+
+    def plain_fwd_bwd():
+        out = E.epipolar_abs_residual_maps_reference(maps)
+        torch.autograd.grad(sum(o.sum() for o in out), [m.flow for m in maps])
+
+    plain_call_ms = call_ms(plain_fwd_bwd, 20, 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as pprof:
+        for _ in range(TRACE_STEPS):
+            plain_fwd_bwd()
+        torch.cuda.synchronize()
+    pk = _device_kernels(pprof)
+    plain_busy = _union_us([(e.time_range.start, e.time_range.end) for e in pk]) / 1e3 / TRACE_STEPS
+    return {"traced_step_ms": wall_ms, "kernel_launches_per_step": len(kernels) / TRACE_STEPS,
+            "device_busy_ms_per_step": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "plain_epipolar_maps_fwd_bwd_device_ms": plain_busy, "plain_epipolar_maps_fwd_bwd_launches": len(pk) / TRACE_STEPS,
+            "plain_epipolar_maps_fwd_bwd_call_ms": plain_call_ms, "plain_epipolar_share_of_busy": plain_busy / busy_ms,
+            "top_kernels": [{"name": n[:90], "calls_per_step": len(d) / TRACE_STEPS,
+                             "ms_per_step": sum(d) / 1e3 / TRACE_STEPS} for n, d in top]}
+
+
+def options_cuda_vs_cpu() -> dict:
+    """Small f32 steps (64×96, batch 2, 2 steps, no augmentation) with
+    fine-tuning and train-mode BN, and the same with accum_steps=2, on the
+    card against the CPU: the metrics at OPTION_RTOLS, each term's
+    difference and the params' largest difference and share past 2e-5
+    (reported)."""
+    import torch
+
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+
+    colors, K = synthetic_batch(2, 64, 96, seed=0)
+    out = {}
+    for name, kw in (("fine_tune_bn_train", {}), ("fine_tune_bn_train_accum2", dict(accum_steps=2))):
+        cfg = Config(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                     compute_dtype="float32", disable_augment=True, fine_tune_flow_motion=True,
+                     bn_frozen_eval=False, **kw).validate()
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            nets = T.build_models(cfg, torch.Generator().manual_seed(0), dev)
+            o = T.make_optimizer(cfg, nets, steps_per_epoch=10)
+            b = {"colors_u8": torch.from_numpy(colors).to(dev), "K": torch.from_numpy(K).to(dev)}
+            mets = [{k: float(v) for k, v in T.train_step(cfg, nets, o, b)[0].items()} for _ in range(2)]
+            runs[dev] = (mets, {f"{n}.{k}": v.detach().cpu() for n, m in T.modules_by_name(nets).items()
+                                for k, v in m.state_dict().items()})
+        terms = [{k: abs(runs["cuda"][0][s][k] - runs["cpu"][0][s][k]) / max(abs(runs["cpu"][0][s][k]), 1e-12)
+                  for k in runs["cpu"][0][s]} for s in range(2)]
+        rel = [max(t.values()) for t in terms]
+        pdiff = torch.cat([(runs["cuda"][1][k] - v).abs().flatten() for k, v in runs["cpu"][1].items()])
+        ok = rel[0] <= OPTION_RTOLS[0] and rel[1] <= OPTION_RTOLS[1]
+        out[name] = {"metric_rel_err": rel, "terms_rel_err": terms, "tol_rel": list(OPTION_RTOLS),
+                     "param_max_abs_err": float(pdiff.max()),
+                     "param_share_over_2e-5": float((pdiff > 2e-5).float().mean()), "ok": ok}
+    return out
+
+
+def skip_step_check(batches: list) -> dict:
+    """skip_nonfinite_updates at the main path's width: a step whose
+    gradient is NaN (a NaN intrinsic in one sample) leaves params, μ, ν and
+    the count bit for bit, and the next finite step applies. The host syncs
+    of a default step and of the skipped step, each under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the skip must add none; with
+    none in either, the skipped step runs again under ``"error"``."""
+    import warnings
+
+    import torch
+
+    from mdn_sfm_tpu_torch import training as T
+
+    import traceback
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def syncs(cfg, models, opt, batch, step):
+        """The host syncs of one step: each as the innermost port frames that
+        led to it."""
+        found = []
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                frames = [f for f in traceback.extract_stack() if f.filename.startswith(here)
+                          and not f.filename.endswith("chip_smoke.py")]
+                found.append(" < ".join(f"{os.path.relpath(f.filename, here)}:{f.lineno}" for f in frames[::-1][:3])
+                             or f"{filename}:{lineno}, no frame of the port on the stack")
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                T.train_step(cfg, models, opt, batch, generator=T.step_generator(cfg.seed, step, "cuda"))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return sorted(set(found))
+
+    out = {}
+    default_cfg = _options_config()
+    models = T.build_models(default_cfg, torch.Generator().manual_seed(0), "cuda")
+    opt = T.make_optimizer(default_cfg, models, steps_per_epoch=1000)
+    T.train_step(default_cfg, models, opt, batches[0], generator=T.step_generator(0, 0, "cuda"))
+    out["default_step_syncs_first"] = syncs(default_cfg, models, opt, batches[1], 1)
+    out["default_step_syncs"] = syncs(default_cfg, models, opt, batches[2], 2)
+
+    cfg = _options_config(skip_nonfinite_updates=True)
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
+    T.train_step(cfg, models, opt, batches[0], generator=T.step_generator(0, 0, "cuda"))
+    torch.cuda.synchronize()
+    before = [t.clone() for t in [p.detach() for p in opt.params] + opt.mu + opt.nu]
+    bad = {k: v.clone() for k, v in batches[1].items()}
+    bad["K"][0, 0, 0] = float("nan")
+    out["skip_step_syncs"] = syncs(cfg, models, opt, bad, 1)
+    out["added_syncs"] = sorted(set(out["skip_step_syncs"]) - set(out["default_step_syncs"])
+                                - set(out["default_step_syncs_first"]))
+    if not out["default_step_syncs"] and not out["skip_step_syncs"]:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            T.train_step(cfg, models, opt, bad, generator=T.step_generator(0, 2, "cuda"))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["skip_step_under_error_mode"] = True
+    torch.cuda.synchronize()
+    after = [p.detach() for p in opt.params] + opt.mu + opt.nu
+    out["state_unchanged"] = all(torch.equal(a, b) for a, b in zip(before, after))
+    skipped = 2 if out.get("skip_step_under_error_mode") else 1
+    out["counts_after_skip"] = [opt.count, int(opt.notfinite_count), int(opt.total_notfinite)]
+    counts_ok = out["counts_after_skip"] == [1, skipped, skipped]
+    T.train_step(cfg, models, opt, batches[2], generator=T.step_generator(0, 3, "cuda"))
+    out["count_after_finite_step"] = opt.count
+    out["ok"] = (out["state_unchanged"] and counts_ok and opt.count == 2 and int(opt.notfinite_count) == 0
+                 and not out["added_syncs"])
+    return out
+
+
+def fine_tune_trainer_run(base: str, smi: str, device: str = "cuda") -> dict:
+    """The Trainer with fine_tune_flow_motion at the main path's width: run A,
+    4 steps with a checkpoint every 2 (each holding the three nets and Adam
+    over all of them); run B resumed with ``resume="auto"`` from A's step-2
+    checkpoint, whose loaded nets and Adam state must equal the files bit for
+    bit, and which must finish A's 4 steps with finite losses. The drift of
+    B's params from A's is reported (the card's atomics make it nonzero)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from mdn_sfm_tpu_torch import checkpoints as ckpt
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.trainer import Trainer
+
+    class QuietTrainer(Trainer):
+        def _make_writers(self):
+            return None
+
+    log = os.path.join(base, "log")
+    cfg = _options_config(fine_tune_flow_motion=True, num_epochs=1, limit_train_samples=BATCH * 4,
+                          save_frequency=2, log_frequency=1, num_workers=2, log_dir=log,
+                          other_files_path=os.path.join(base, "files"), v_save="vft")
+    tA = QuietTrainer(cfg, synthetic=True, device=device)
+    tA.train()
+    nets = ("flownet", "posenet", "mobile_decoder")
+    layout_ok = all(sorted(os.listdir(ckpt.weights_folder(log, "vft", i))) == sorted(
+        [f"{n}.pth" for n in nets] + ["adam.pth", "meta.json"]) for i in range(3))
+    shutil.copytree(ckpt.weights_folder(log, "vft", 0), ckpt.weights_folder(log, "vft_b", 0))
+    tB = QuietTrainer(dataclasses.replace(cfg, v_save="vft_b", resume="auto"), synthetic=True, device=device)
+    folder = ckpt.weights_folder(log, "vft", 0)
+    mods = T.modules_by_name(tB.models)
+    loaded = all(torch.equal(v.cpu(), torch.load(os.path.join(folder, f"{n}.pth"), weights_only=True)[k])
+                 for n in nets for k, v in mods[n].state_dict().items())
+    adam = torch.load(os.path.join(folder, "adam.pth"), weights_only=True)
+    adam_ok = (tB.opt.count == 2 and len(adam["state"]) == len(tB.opt.params) and all(
+        torch.equal(tB.opt.mu[i].cpu(), s["exp_avg"]) and torch.equal(tB.opt.nu[i].cpu(), s["exp_avg_sq"])
+        for i, s in adam["state"].items()))
+    tB.train()
+    a, b = T.modules_by_name(tA.models), T.modules_by_name(tB.models)
+    d = torch.cat([(b[n].state_dict()[k] - v).abs().flatten().float()
+                   for n in nets for k, v in a[n].state_dict().items()])
+    losses = [loss for _, _, loss in tA.step_log + tB.step_log]
+    rec = {"steps_A": tA.step, "steps_B": tB.step, "count_B": tB.opt.count, "start_step_B": tB.start_step,
+           "layout_ok": layout_ok, "resume_loaded_exact": loaded, "resume_adam_exact": adam_ok,
+           "losses": losses, "drift_max_abs": float(d.max()), "drift_mean_abs": float(d.mean()),
+           "median_step_ms_A": 1e3 * statistics.median(s for _, s, _ in tA.step_log)}
+    ok = (layout_ok and loaded and adam_ok and tB.start_step == 2 and tA.step == tB.step == tB.opt.count == 4
+          and all(math.isfinite(x) for x in losses))
+    emit({"phase": "fine_tune_trainer", **rec, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the fine-tune Trainer run failed (see its line)")
+    return rec
+
+
+def rehearsal_run(base: str, smi: str) -> dict:
+    """synthetic_e2e.run on the card with REHEARSAL_ARGV: phase 1 must cut
+    the eval flow EPE under EPE_CUT of its start with no epipolar launch;
+    the calibration launches once a batch; each phase-2 row launches once a
+    step for 8 maps (the maskrcnn@2 row also 2 NMS and 2 ROIAlign), and
+    separates the patch (sep > 0)."""
+    from mdn_sfm_tpu_torch import synthetic_e2e
+
+    args = synthetic_e2e.build_parser().parse_args(REHEARSAL_ARGV + ["--log_dir", os.path.join(base, "e2e")])
+    record: dict = {}
+    t0 = time.perf_counter()
+    result = synthetic_e2e.run(args, record)
+    seconds = time.perf_counter() - t0
+    p1, cal = record["phase1"], record["calibration"]
+    checks = {
+        "epe_cut": result["epe_trained"] <= EPE_CUT * result["epe_init"],
+        "phase1_no_launch": p1["epipolar_launches"] == 0,
+        "calibration_one_launch_a_batch": cal["epipolar_launches"] == cal["batches"],
+    }
+    for tag, rec in record["phase2"].items():
+        row = result["modes"][tag]
+        live = "@maskrcnn" in tag
+        checks[f"{tag}_launches"] = (rec["epipolar_launches"] == rec["steps"] and rec["epipolar_maps"] == 8 * rec["steps"]
+                                     and (rec["nms_launches"] == rec["roi_align_launches"] == 2 * rec["steps"]
+                                          if live else rec["nms_launches"] == 0))
+        checks[f"{tag}_sep"] = row["sep"] > 0
+    ok = all(checks.values())
+    emit({"phase": "rehearsal", "argv": REHEARSAL_ARGV, "result": result, "record": record, "checks": checks,
+          "seconds": seconds, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the rehearsal failed (see its line)")
+    return {"record": record, "result": result}
+
+
+def options_phase(smi: str) -> dict:
+    """Phase 9: the step options at 640×192 bs4 bf16, a device trace of the
+    fine-tune step, the f32 option steps on the card against the CPU, the
+    skipped non-finite step, the fine-tune Trainer (train, save, resume) and
+    the short rehearsal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+
+    t_phase = time.perf_counter()
+    batches = []
+    for seed in range(4):
+        colors, K = synthetic_batch(BATCH, HEIGHT, WIDTH, seed=seed)
+        batches.append({"colors_u8": torch.from_numpy(colors).cuda(), "K": torch.from_numpy(K).cuda()})
+    runs = {name: option_run(name, opts, batches, smi) for name, opts in OPTION_CONFIGS}
+    base = runs["fine_tune"]["peak_mem_gib"]
+    saved = {name: base - runs[name]["peak_mem_gib"] for name in ("fine_tune_remat", "fine_tune_accum2")}
+    trace = fine_tune_trace(batches)
+    small = options_cuda_vs_cpu()
+    skip = skip_step_check(batches)
+    tmp = tempfile.mkdtemp(prefix="mdn_e2e_")
+    try:
+        trainer = fine_tune_trainer_run(tmp, smi)
+        rehearsal = rehearsal_run(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = all(v["ok"] for v in small.values()) and skip["ok"]
+    ok = ok and runs["fine_tune_accum2"]["peak_mem_gib"] < runs["fine_tune"]["peak_mem_gib"]
+    emit({"phase": "step_options", "peak_mem_saved_gib_vs_fine_tune": saved, "device_trace_fine_tune": trace,
+          "cuda_vs_cpu_f32": small, "skip_nonfinite": skip, "phase_seconds": time.perf_counter() - t_phase,
+          "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the step-options phase failed (see its line)")
+    return {"runs": runs, "trainer": trainer, "rehearsal": rehearsal}
+
+
 def main() -> None:
     import torch
 
@@ -1248,6 +1663,10 @@ def main() -> None:
     # ---- 8. DS and DC with the Mask R-CNN fused into the step
     ds = ds_dc_phase(smi)
 
+    # ---- 9. the step options and the synthetic rehearsal
+    opt9 = options_phase(smi)
+    rows = opt9["rehearsal"]["record"]["phase2"]
+
     # ---- summary lines
     emit({"kernels": [{
         "name": "epipolar_abs_residual_maps",
@@ -1272,6 +1691,12 @@ def main() -> None:
                         "maps": ev["clis"][name]["epipolar_maps"],
                         **{k: ev["kernel"][name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
                  for name in ("evaluate_mix", "evaluate_flow")},
+        # phase 9: launches and maps in each step option's timed steps (the
+        # fine-tune steps take the plain map) and in the rehearsal's rows
+        "step_options": {name: {"launches": r["epipolar_launches"], "maps": r["epipolar_maps"]}
+                         for name, r in opt9["runs"].items()},
+        "rehearsal_phase2": {tag: {"launches": r["epipolar_launches"], "maps": r["epipolar_maps"]}
+                             for tag, r in rows.items()},
     }] + mask_kernel_entries(ds)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -9,7 +9,12 @@ The port's native format is the reference's own: each net's ``state_dict``
 (the port's modules carry the reference's parameter names), and Adam's
 state in ``torch.optim.Adam``'s ``state_dict`` layout. So the reference repo
 loads these files, and the JAX package reads the nets through its ``.pth``
-route (``mdn_sfm_tpu.checkpoints.load_checkpoint``).
+route (``mdn_sfm_tpu.checkpoints.load_checkpoint``). A folder holds the nets
+being trained: the mobile decoder, and flow and pose (with their BN
+statistics) when ``fine_tune_flow_motion``. ``adam.pth`` numbers the
+parameters in ``training.trainable_nets``' order (the decoder's, then
+flow's and pose's), and with ``skip_nonfinite_updates`` its param group
+also holds ``notfinite_count``, ``last_finite`` and ``total_notfinite``.
 
 Every file is written to a temporary name and moved into place with
 ``os.replace``. ``meta.json`` (``step``, ``base_step``) is written last: it

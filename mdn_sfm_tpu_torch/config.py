@@ -1,9 +1,9 @@
 """Configuration — the port's own copy of ``mdn_sfm_tpu.config``.
 
 Same dataclass field names and defaults, so one ``opt.json`` reads in both
-packages. Fields whose behaviour this port does not implement yet raise
-``NotImplementedError`` in :meth:`Config.validate` when set to anything but
-their default; they are never ignored.
+packages. The two fields whose behaviour this port does not implement yet
+(``steps_per_dispatch > 1``, ``num_data_shards > 1``) raise
+``NotImplementedError`` in :meth:`Config.validate`; they are never ignored.
 """
 
 from __future__ import annotations
@@ -138,8 +138,9 @@ class Config:
 
     # ACCELERATOR knobs
     compute_dtype: str = "bfloat16"   # conv compute dtype; params and losses stay fp32
-    use_pallas_epipolar: bool = True  # the JAX package's name; the port always
-    # takes the hand-written epipolar kernel on the card (False raises)
+    use_pallas_epipolar: bool = True  # the JAX package's name: the hand-written
+    # epipolar kernel while the maps carry no gradient; False (or
+    # fine_tune_flow_motion) takes the plain map with autograd on every device
     num_data_shards: int = 0
     bn_frozen_eval: bool = True
     donate_state: bool = True
@@ -168,12 +169,15 @@ class Config:
         self.mode = Mode(self.mode)
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype must be bfloat16 or float32, not {self.compute_dtype!r}")
-        for name in _NOT_IMPLEMENTED:
-            if getattr(self, name) != _DEFAULTS[name]:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not implemented by the "
-                    f"PyTorch port yet (only the default {_DEFAULTS[name]!r})"
-                )
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, not {self.accum_steps}")
+        if self.steps_per_dispatch > 1:
+            # several optimizer steps a dispatch: on the card a captured
+            # multi-step CUDA graph, not a scan
+            raise NotImplementedError(
+                f"steps_per_dispatch={self.steps_per_dispatch} is not implemented by the PyTorch port yet "
+                "(only the default 1)"
+            )
         if self.num_data_shards > 1:
             raise NotImplementedError(
                 "num_data_shards > 1 (data parallelism) is not implemented by the PyTorch port yet"
@@ -214,22 +218,6 @@ class Config:
             return _from_dict(json.load(f))
 
 
-# Behaviours of the JAX package that this port does not have yet: set to a
-# non-default value they raise in validate().
-_NOT_IMPLEMENTED = (
-    "remat",
-    "accum_steps",
-    "fine_tune_flow_motion",
-    "bn_frozen_eval",
-    "skip_nonfinite_updates",
-    # the plain epipolar map on the card comes back with the gradient-carrying
-    # branch, together with fine_tune_flow_motion
-    "use_pallas_epipolar",
-    # several optimizer steps a dispatch: on the card a captured multi-step
-    # CUDA graph, not a scan
-    "steps_per_dispatch",
-)
-_DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
 _WARNED_D2_SCALE = False
 _TUPLE_FIELDS = ("scales", "frame_ids", "models_to_load")
 

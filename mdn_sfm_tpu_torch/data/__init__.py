@@ -6,7 +6,7 @@ from .cache import DecodedCache
 from .kitti import KittiRawDataset, parse_calib_intrinsics
 from .loader import HostLoader, Subset
 from .splits import read_split_lines, split_path
-from .synthetic import SyntheticDataset, synthetic_batch, synthetic_intrinsics
+from .synthetic import SyntheticDataset, moving_object_batch, synthetic_batch, synthetic_intrinsics
 
 __all__ = [
     "MEAN",
@@ -19,6 +19,7 @@ __all__ = [
     "augment_batch",
     "draw_augment",
     "eval_preprocess",
+    "moving_object_batch",
     "parse_calib_intrinsics",
     "read_split_lines",
     "split_path",

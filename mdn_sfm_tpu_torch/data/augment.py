@@ -5,7 +5,7 @@ Reference semantics kept as the JAX package keeps them:
 * ColorJitter is a no-op as shipped (the reference's theta=1), so there is none.
 * Horizontal flip p=0.5 with cx ← W − cx, folded into the x-resample.
 * Zoom-crop ≤ 1.15 with continuous scales and offsets, as two separable
-  interpolation products, with the K update.
+  2-tap resamples (rows, then columns), with the K update.
 * Normalize with mean 0.45 / std 0.225; scales 1..3 are 2×2 box averages
   (an exact ×½ bilinear resample without antialiasing) with K/2ˢ.
 
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..geometry import invert_intrinsics
+from ..utils import divisor
 
 Tensor = torch.Tensor
 
@@ -43,17 +44,27 @@ def draw_augment(
     return {"flip": flip, "scale_xy": scale_xy, "offset_xy": offset_xy}
 
 
-def _interp_matrix(n: int, coords: Tensor) -> Tensor:
-    """(B, n_out) continuous input coordinates → (B, n_out, n) linear
-    interpolation weights W with out = W @ in (border clamped)."""
+def _resample(x: Tensor, coords: Tensor, dim: int) -> Tensor:
+    """2-tap linear resample of ``x`` (B, F, H, W, C) along ``dim`` (2: rows,
+    3: columns) at per-sample continuous input coordinates ``coords`` (B,
+    n_out), border clamped. Two gathers, two products and a sum, each its
+    own elementwise op: it rounds alike on every device (a matrix product
+    would add the taps in the library's order)."""
+    n = x.shape[dim]
     x0 = torch.floor(coords)
-    f = coords - x0
+    frac = coords - x0
     i0 = x0.long().clamp(0, n - 1)
     i1 = (x0.long() + 1).clamp(0, n - 1)
-    m = torch.zeros(coords.shape + (n,), dtype=torch.float32, device=coords.device)
-    m.scatter_add_(-1, i0[..., None], (1.0 - f)[..., None])
-    m.scatter_add_(-1, i1[..., None], f[..., None])
-    return m
+    view = [coords.shape[0], 1, 1, 1, 1]
+    view[dim] = coords.shape[1]
+    out_shape = list(x.shape)
+    out_shape[dim] = coords.shape[1]
+
+    def taps(i: Tensor) -> Tensor:
+        return torch.gather(x, dim, i.view(view).expand(out_shape))
+
+    w = frac.view(view)
+    return taps(i0) * (1.0 - w) + taps(i1) * w
 
 
 def augment_batch(
@@ -81,7 +92,8 @@ def augment_batch(
     if f != len(cfg.frame_ids):
         raise ValueError(f"{f} frames given, cfg.frame_ids has {len(cfg.frame_ids)}")
     dev = colors_u8.device
-    x = colors_u8.float() / 255.0
+    x = colors_u8.float()
+    x = x / divisor(x, 255.0)
     K = K.float().clone()
 
     if train and not cfg.disable_augment:
@@ -102,10 +114,7 @@ def augment_batch(
         in_x = (ar_w + offset_xy[:, 0:1] + 0.5) / scale_xy[:, 0:1] - 0.5
         in_y = (ar_h + offset_xy[:, 1:2] + 0.5) / scale_xy[:, 1:2] - 0.5
         in_x = torch.where(flip[:, None], (w - 1) - in_x, in_x)
-        Wx = _interp_matrix(w, in_x)  # (B, W, W)
-        Wy = _interp_matrix(h, in_y)  # (B, H, H)
-        x = torch.einsum("bih,bfhwc->bfiwc", Wy, x)
-        x = torch.einsum("bjw,bfiwc->bfijc", Wx, x)
+        x = _resample(_resample(x, in_y, 2), in_x, 3)
 
         K[:, 0, :] = K[:, 0, :] * scale_xy[:, 0:1]
         K[:, 1, :] = K[:, 1, :] * scale_xy[:, 1:2]
@@ -113,7 +122,7 @@ def augment_batch(
         K[:, 1, 2] = K[:, 1, 2] - offset_xy[:, 1]
 
     raw0 = x[:, 0]
-    normalized = (x - MEAN) / STD
+    normalized = (x - MEAN) / divisor(x, STD)
 
     num_scales = max(cfg.scales) + 1
     per_scale = [normalized]
@@ -141,4 +150,5 @@ def augment_batch(
 
 def eval_preprocess(colors_u8: Tensor) -> Tensor:
     """Normalize eval images: /255, mean 0.45, std 0.225, in float32."""
-    return (colors_u8.float() / 255.0 - MEAN) / STD
+    x = colors_u8.float()
+    return (x / divisor(x, 255.0) - MEAN) / divisor(x, STD)

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .utils import divisor
+
 Tensor = torch.Tensor
 
 
@@ -243,8 +245,8 @@ def inverse_warp(ref_img: Tensor, flow: Tensor, padding_mode: str = "zeros") -> 
     _, h, w, _ = ref_img.shape
     coords = pixel_coords(h, w, flow.device)[None] + flow.float()
     warped = bilinear_sample(ref_img, coords, padding_mode)
-    gx = 2.0 * coords[..., 0] / (w - 1) - 1.0
-    gy = 2.0 * coords[..., 1] / (h - 1) - 1.0
+    gx = 2.0 * coords[..., 0] / divisor(coords, w - 1) - 1.0
+    gy = 2.0 * coords[..., 1] / divisor(coords, h - 1) - 1.0
     valid = (torch.maximum(gx.abs(), gy.abs()) <= 1.0).to(ref_img.dtype)
     return warped, valid[..., None]
 

@@ -24,7 +24,8 @@ from .geometry import (
     resize_bilinear,
     scale_factor,
 )
-from .ops.epipolar import EpipolarMap, epipolar_abs_residual_maps
+from .ops.epipolar import EpipolarMap, epipolar_abs_residual_maps, epipolar_abs_residual_maps_reference
+from .utils import divisor
 
 Tensor = torch.Tensor
 
@@ -127,11 +128,11 @@ def post_process_epipolar(
         normalized = epipolar_map / norms
         return normalized**2, normalized
     if mode == Mode.T:
-        return (epipolar_map / threshold) ** 2, epipolar_map
+        return (epipolar_map / divisor(epipolar_map, threshold)) ** 2, epipolar_map
     if mode == Mode.TG:
         post = epipolar_map
         if threshold is not None:
-            post = post / threshold
+            post = post / divisor(post, threshold)
         post = post / gauss_weight[None, :, :, None]
         return post**2, epipolar_map
     if mode == Mode.DS:
@@ -218,6 +219,13 @@ def compute_losses(
 ) -> tuple[dict[str, Tensor], LossAux]:
     """Full multi-scale multi-frame loss.
 
+    The step's |epipolar residual| maps come from one call. While flow and
+    pose are frozen they carry no gradient, and the call is
+    :func:`~.ops.epipolar.epipolar_abs_residual_maps`: the CUDA kernel on
+    the card, its plain version on the CPU. With ``fine_tune_flow_motion``,
+    or ``use_pallas_epipolar=False``, the config takes the plain version
+    with autograd on every device, as the JAX package takes plain XLA there.
+
     Args:
         colors: {(frame_id, scale): (B, Hs, Ws, 3) normalized image}.
         inv_Ks: {scale: (B, 3+, 3+) inverse intrinsics}.
@@ -248,17 +256,16 @@ def compute_losses(
     aux = LossAux({}, {}, {}, {})
 
     # every |epipolar residual| map of the step in one call: the networks'
-    # normalized flow with its pixel scale, and the pose read in place. Flow
-    # and pose are frozen (Config.validate refuses fine-tuning them), so the
-    # maps carry no gradient; the flow's device chooses the CUDA kernel or
-    # its plain version
+    # normalized flow with its pixel scale, and the pose read in place
     keys = [(i, s) for s in cfg.scales for i in frame_ids]
     maps = []
     for i, s in keys:
         _, hs, ws, _ = colors[(0, s)].shape
         T = cam_T_cams[i]
         maps.append(EpipolarMap(flows[(i, s)].float(), (float(ws), float(hs)), inv_Ks[s], T[:, :3, :3], T[:, :3, 3]))
-    resids = dict(zip(keys, epipolar_abs_residual_maps(maps)))
+    with_grad = cfg.fine_tune_flow_motion or not cfg.use_pallas_epipolar
+    maps_fn = epipolar_abs_residual_maps_reference if with_grad else epipolar_abs_residual_maps
+    resids = dict(zip(keys, maps_fn(maps)))
 
     for s in cfg.scales:
         avg = float(2**s)

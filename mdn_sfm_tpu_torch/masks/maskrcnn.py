@@ -505,18 +505,21 @@ def paste_threshold_union_ready(det: Detections, boxes: Tensor, out_h: int, out_
     return (paste_masks(det.masks28, boxes, out_h, out_w) >= 0.5) & det.valid[..., None, None]
 
 
-def build_model_and_weights(max_det: int, weights_path: str | None = None, fast: bool = False,
+def build_model_and_weights(max_det: int, weights_path: str | dict | None = None, fast: bool = False,
                             score_thresh: float = ROI_SCORE_THRESH, roi_dtype: torch.dtype = torch.float32,
                             dtype: torch.dtype = torch.bfloat16,
                             device: str | torch.device | None = None) -> MaskRCNN:
     """The shared construction for every Mask R-CNN consumer (backend,
-    provider): the proposal budget, the weights from ``weights_path`` by a
-    strict import or random from seed 0, frozen (eval mode, no gradients), on
-    ``device`` (``cuda`` unless asked otherwise; channels-last there)."""
+    provider): the proposal budget, the weights from ``weights_path`` (a
+    ``.pth`` or a detectron2-keyed state dict) by a strict import or random
+    from seed 0, frozen (eval mode, no gradients), on ``device`` (``cuda``
+    unless asked otherwise; channels-last there)."""
     device = resolve_device(device)
     model = MaskRCNN(max_det=max_det, score_thresh=score_thresh, dtype=dtype, roi_dtype=roi_dtype,
                      **(FAST_BUDGET if fast else {}))
-    if weights_path:
+    if isinstance(weights_path, dict):
+        import_detectron2_state_dict(weights_path, model)
+    elif weights_path:
         import_detectron2_pth(weights_path, model)
     else:
         model.init_weights(torch.Generator().manual_seed(0))
@@ -646,15 +649,18 @@ class MaskRCNNProvider:
     the fast proposal budget, bf16 ROIAlign. :meth:`union_fn` is what the
     fused train step calls on the augmented frame; the Trainer calls
     :meth:`union_masks_from_images` on the raw host frame when
-    ``d2_fuse_step`` is off."""
+    ``d2_fuse_step`` is off. ``weights``: a detectron2-keyed state dict to
+    use instead of ``{log_dir}/model_final_detectron2.pth`` (the synthetic
+    rehearsal's crafted detector)."""
 
-    def __init__(self, cfg, device: str | torch.device | None = None):
+    def __init__(self, cfg, device: str | torch.device | None = None, weights: dict | None = None):
         scale = int(cfg.d2_infer_scale)
         ih, iw = cfg.height * scale, cfg.width * scale
         if ih % 64 or iw % 64:
             raise ValueError(f"the d2 inference shape {(ih, iw)} must be /64 for the FPN")
-        weights = os.path.join(cfg.log_dir, "model_final_detectron2.pth")
-        if not os.path.exists(weights):
+        if weights is None:
+            weights = os.path.join(cfg.log_dir, "model_final_detectron2.pth")
+        if isinstance(weights, str) and not os.path.exists(weights):
             # a DS/DC run supervised by a randomly initialized Mask R-CNN
             # trains against garbage with no other symptom: fail fast unless
             # the caller opts in

@@ -1,6 +1,7 @@
 """Which allocations hold the main path's train step at its peak device memory.
 
-    python -m mdn_sfm_tpu_torch.memory_step [--top 15]
+    python -m mdn_sfm_tpu_torch.memory_step [--top 15] [--fine_tune_flow_motion] [--remat]
+        [--accum_steps 2] [--bn_frozen_eval false] [--skip_nonfinite_updates]
 
 Runs the TG step at 640×192, batch 4, bf16 (random weights from a seed)
 through ``training.train_step``: a few warm-up steps, then one step under
@@ -21,6 +22,7 @@ import torch
 
 from . import training as T
 from .config import Config, Mode
+from .profile_step import add_step_option_args, step_options
 from .data.synthetic import synthetic_batch
 from .utils import resolve_device
 
@@ -66,11 +68,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
+    add_step_option_args(ap)
     args = ap.parse_args()
 
     device = resolve_device()
     cfg = Config(height=192, width=640, batch_size=4, mode=Mode.TG, threshold=9.22,
-                 w_d2_sim=0.0, compute_dtype="bfloat16").validate()
+                 w_d2_sim=0.0, compute_dtype="bfloat16", **step_options(args)).validate()
     models = T.build_models(cfg, torch.Generator().manual_seed(0), device)
     opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -95,6 +98,7 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "memory": "train_step TG 640x192 bs4 bf16, one step after warm-up",
+        "step_options": step_options(args),
         "card": smi,
         "allocated_before_step_bytes": before,
         "max_memory_allocated_bytes": peak_stat,

@@ -22,8 +22,8 @@ _STAGES = {
 }
 _BOTTLENECK = {18: False, 34: False, 50: True, 101: True, 152: True}
 
-# flax BatchNorm(momentum=0.9) keeps 0.9 of the old average; torch's momentum
-# is the weight of the new batch.
+# flax BatchNorm(momentum=0.9) keeps 0.9 of the old average and adds 0.1 of
+# the batch's statistic
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
@@ -31,7 +31,14 @@ BN_EPS = 1e-5
 class BatchNorm2d(nn.Module):
     """BatchNorm with the reference's parameter names (weight, bias,
     running_mean, running_var) and no ``num_batches_tracked`` counter, so a
-    state dict converted from Flax loads with ``strict=True``."""
+    state dict converted from Flax loads with ``strict=True``.
+
+    In train mode it normalizes with the batch's statistics and updates the
+    running averages as Flax's ``BatchNorm`` does: with the *biased* batch
+    variance (``F.batch_norm`` would add the unbiased one, n/(n−1) larger).
+    While ``replay`` is set (the recompute of a rematerialized forward) it
+    normalizes with the batch's statistics and leaves the averages as the
+    first forward left them."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -39,12 +46,24 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.replay = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            self.training, BN_MOMENTUM, BN_EPS,
-        )
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, BN_EPS)
+        # momentum 1 writes the batch's mean and unbiased variance into
+        # these two, in the same kernel that normalizes (a replay makes the
+        # same call, so it saves the same tensors for backward)
+        mean, var = torch.zeros_like(self.running_mean), torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, BN_EPS)
+        if self.replay:
+            return y
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM * (n - 1) / n)
+        return y
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int) -> nn.Conv2d:

@@ -7,8 +7,9 @@ computes many maps in one launch — every map of a train step — each from the
 networks' normalized flow, a pixel scale and the raw pose;
 :func:`epipolar_abs_residual` is its one-map case. The tensors' device
 chooses: CPU tensors take the plain version, CUDA tensors launch the kernel
-or raise. The maps carry no gradient, so they serve the loss only while flow
-and pose are frozen.
+or raise. The kernel's maps carry no gradient, so the loss takes it only
+while flow and pose are frozen; when they train (``fine_tune_flow_motion``)
+the config sends the loss to the plain version, with autograd.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """Where the main path's train step spends its time, on the card.
 
     python -m mdn_sfm_tpu_torch.profile_step [--steps 10] [--trace DIR] [--mode DS|DC]
+        [--fine_tune_flow_motion] [--remat] [--accum_steps 2] [--bn_frozen_eval false]
+        [--skip_nonfinite_updates]
 
 Runs the TG step at 640×192, batch 4, bf16 (random weights from a seed)
 through ``training.train_step`` in windows of ``--steps`` steps each. With
 ``--mode DS`` or ``DC`` the step runs the live Mask R-CNN provider fused
 into it (random weights, ``d2_infer_scale`` 2: 384×1280,
-``--d2_score_thresh``).
+``--d2_score_thresh``). The step options take the train flags' names.
 
 1. a window with no profiler, then ``--rounds`` times a device-only trace
    (``ProfilerActivity.CUDA``: no host ops recorded) followed by another
@@ -57,6 +59,23 @@ def _device_kernels(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in T.STAGES]
 
 
+STEP_OPTIONS = ("fine_tune_flow_motion", "remat", "accum_steps", "bn_frozen_eval", "skip_nonfinite_updates")
+
+
+def add_step_option_args(ap: argparse.ArgumentParser) -> None:
+    """The train step's options as flags, with the train CLI's names."""
+    ap.add_argument("--fine_tune_flow_motion", action="store_true")
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--skip_nonfinite_updates", action="store_true")
+    ap.add_argument("--accum_steps", type=int, default=1)
+    ap.add_argument("--bn_frozen_eval", type=lambda v: v.lower() in ("1", "true", "yes"), default=True)
+
+
+def step_options(args: argparse.Namespace) -> dict:
+    """{option: value} of :func:`add_step_option_args`' flags."""
+    return {k: getattr(args, k) for k in STEP_OPTIONS}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -65,19 +84,21 @@ def main() -> None:
     ap.add_argument("--trace", type=str, default="")
     ap.add_argument("--mode", type=str, default="TG", choices=["TG", "DS", "DC"])
     ap.add_argument("--d2_score_thresh", type=float, default=0.3)
+    add_step_option_args(ap)
     args = ap.parse_args()
 
     device = resolve_device()
     provider = None
     if args.mode == "TG":
         cfg = Config(height=192, width=640, batch_size=4, mode=Mode.TG, threshold=9.22,
-                     w_d2_sim=0.0, compute_dtype="bfloat16").validate()
+                     w_d2_sim=0.0, compute_dtype="bfloat16", **step_options(args)).validate()
     else:
         from .masks.maskrcnn import MaskRCNNProvider
 
         cfg = Config(height=192, width=640, batch_size=4, mode=Mode(args.mode), threshold=9.22,
                      compute_dtype="bfloat16", mask_provider="maskrcnn", d2_allow_random_weights=True,
-                     d2_score_thresh=args.d2_score_thresh, log_dir=tempfile.mkdtemp()).validate()
+                     d2_score_thresh=args.d2_score_thresh, log_dir=tempfile.mkdtemp(),
+                     **step_options(args)).validate()
         provider = MaskRCNNProvider(cfg, device)
     models = T.build_models(cfg, torch.Generator().manual_seed(0), device)
     opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
@@ -132,6 +153,7 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "profile": f"train_step {args.mode} 640x192 bs4 bf16",
+        "step_options": step_options(args),
         "d2_score_thresh": args.d2_score_thresh if provider is not None else None,
         "card": smi,
         "steps_per_window": args.steps,

@@ -145,7 +145,8 @@ class Trainer:
         cfg = self.cfg
         self.models = T.build_models(cfg, device=self.device)
 
-        # frozen flow/pose: always from v0/weights_0, as the reference does
+        # flow/pose: always from v0/weights_0, as the reference does (the
+        # starting point when fine_tune_flow_motion trains them too)
         folder = ckpt.weights_folder(cfg.log_dir, "v0", 0)
         to_load = tuple(n for n in cfg.models_to_load if n != "mobile_decoder")
         if os.path.isdir(folder) and to_load:
@@ -164,11 +165,12 @@ class Trainer:
             latest = ckpt.latest_weights_idx(cfg.log_dir, cfg.v_save)
             if latest is not None:
                 resume_folder = ckpt.weights_folder(cfg.log_dir, cfg.v_save, latest)
-                self.start_step = self._load_nets(resume_folder, ("mobile_decoder",))
+                self.start_step = self._load_nets(resume_folder, T.trainable_nets(cfg))
                 self.start_idx_save = latest + 1
                 print(f"Auto-resume: {resume_folder} (step {self.start_step})")
         self._resumed_auto = resume_folder is not None
-        if resume_folder is None and cfg.load_adam and "mobile_decoder" in cfg.models_to_load:
+        if (resume_folder is None and (cfg.fine_tune_flow_motion or cfg.load_adam)
+                and "mobile_decoder" in cfg.models_to_load):
             mfolder = ckpt.weights_folder(cfg.log_dir, cfg.v_load, cfg.idx_load)
             if os.path.isdir(mfolder):
                 self.start_step = self._load_nets(mfolder, ("mobile_decoder",))
@@ -220,7 +222,9 @@ class Trainer:
         self.cfg.save(os.path.join(self.save_path, "models", "opt.json"))
 
     def save_model(self, idx_save: int, async_write: bool = False):
-        """Write ``weights_{idx_save}`` (mobile decoder, Adam, meta.json).
+        """Write ``weights_{idx_save}``: the nets being trained (the mobile
+        decoder; flow and pose too, with their BN statistics, when
+        ``fine_tune_flow_motion``), Adam and meta.json.
 
         The copy to the host is taken here, synchronously: the optimizer
         updates the parameters in place, so the next step must not reach the
@@ -231,7 +235,8 @@ class Trainer:
         self._join_pending_save()
         folder = ckpt.weights_folder(self.cfg.log_dir, self.cfg.v_save, idx_save)
         t0 = time.perf_counter()
-        nets = {"mobile_decoder": ckpt.to_host(self.models.mobile.state_dict())}
+        mods = T.modules_by_name(self.models)
+        nets = {n: ckpt.to_host(mods[n].state_dict()) for n in T.trainable_nets(self.cfg)}
         adam = ckpt.to_host(self.opt.state_dict())
         step, base = self.step, self.base_step
         copy_s = time.perf_counter() - t0

@@ -114,47 +114,64 @@ def state_dict_from_flax(net: str, variables: Mapping) -> dict[str, torch.Tensor
     return sd
 
 
-def _find_adam(state: Any) -> Any:
-    """The ScaleByAdamState (count, mu, nu) inside an optax state."""
-    if all(hasattr(state, k) for k in ("count", "mu", "nu")):
+def _find(state: Any, fields: tuple[str, ...]) -> Any:
+    """The first node of an optax state (a nest of named tuples, tuples,
+    lists and dicts) that has every attribute of ``fields``."""
+    if all(hasattr(state, k) for k in fields):
         return state
     children = state.values() if isinstance(state, Mapping) else state if isinstance(state, (tuple, list)) else ()
     for c in children:
-        found = _find_adam(c)
+        found = _find(c, fields)
         if found is not None:
             return found
     return None
 
 
-def adam_state_from_optax(opt_state: Any, param_names: list[str]) -> dict:
+def adam_state_from_optax(opt_state: Any, param_names: list[str] | Mapping[str, list[str]]) -> dict:
     """Carry optax's Adam state into the port's ``training.Adam``.
 
-    ``opt_state``: the JAX package's optimizer state for the mobile decoder
-    (``clip_by_global_norm`` → ``adam``), pulled to numpy
-    (``jax.device_get``); its ``ScaleByAdamState`` holds ``count`` and the
-    moments ``mu``/``nu`` as Flax trees, optionally under a
-    ``'mobile_decoder'`` key as the JAX train state keeps them.
-    ``param_names``: the mobile decoder's ``named_parameters`` names, in
-    order. Returns the state dict ``Adam.load_state_dict`` reads (the
-    ``torch.optim.Adam`` layout: per parameter ``step``, ``exp_avg``,
-    ``exp_avg_sq``), with conv kernels transposed HWIO → OIHW."""
-    adam = _find_adam(opt_state)
+    ``opt_state``: the JAX package's optimizer state (``clip_by_global_norm``
+    → ``adam``, wrapped in ``apply_if_finite`` with
+    ``skip_nonfinite_updates``), pulled to numpy (``jax.device_get``); its
+    ``ScaleByAdamState`` holds ``count`` and the moments ``mu``/``nu`` as
+    Flax trees under the trained nets' names, as the JAX train state keeps
+    them. ``param_names``: {net: its ``named_parameters`` names, in order},
+    in the optimizer's net order (``training.trainable_param_names``), or
+    the mobile decoder's names alone. Returns the state dict
+    ``Adam.load_state_dict`` reads (the ``torch.optim.Adam`` layout: per
+    parameter ``step``, ``exp_avg``, ``exp_avg_sq``, numbered over the nets
+    in that order), with conv kernels transposed HWIO → OIHW, and
+    ``apply_if_finite``'s ``notfinite_count``, ``last_finite`` and
+    ``total_notfinite`` in the param group when the state has them."""
+    if not isinstance(param_names, Mapping):
+        param_names = {"mobile_decoder": list(param_names)}
+    adam = _find(opt_state, ("count", "mu", "nu"))
     if adam is None:
         raise ValueError("no optax ScaleByAdamState (count, mu, nu) found in opt_state")
     count = int(np.asarray(adam.count))
-    moments = {}
+    moments: dict[str, list[torch.Tensor]] = {"mu": [], "nu": []}
     for which in ("mu", "nu"):
         tree = getattr(adam, which)
-        # the moments have the params' tree, so they map as the params do
-        sd = state_dict_from_flax("mobile_decoder", {"params": tree.get("mobile_decoder", tree)})
-        if set(sd) != set(param_names):
-            raise KeyError(f"optax {which} holds {sorted(set(sd) ^ set(param_names))} unlike the parameters")
-        moments[which] = sd
+        for net, names in param_names.items():
+            sub = tree[net] if net in tree else tree if len(param_names) == 1 else None
+            if sub is None:
+                raise KeyError(f"optax {which} holds no {net!r} (it holds {sorted(tree)})")
+            # the moments have the params' tree, so they map as the params do
+            sd = state_dict_from_flax(net, {"params": sub})
+            if set(sd) != set(names):
+                raise KeyError(f"optax {which} of {net} holds {sorted(set(sd) ^ set(names))} unlike the parameters")
+            moments[which] += [sd[n] for n in names]
     state = {
-        i: {"step": torch.tensor(float(count)), "exp_avg": moments["mu"][n], "exp_avg_sq": moments["nu"][n]}
-        for i, n in enumerate(param_names)
+        i: {"step": torch.tensor(float(count)), "exp_avg": mu, "exp_avg_sq": nu}
+        for i, (mu, nu) in enumerate(zip(moments["mu"], moments["nu"]))
     }
-    return {"state": state, "param_groups": [{"params": list(range(len(param_names)))}]}
+    group: dict = {"params": list(range(len(state)))}
+    finite = _find(opt_state, ("notfinite_count", "last_finite", "total_notfinite"))
+    if finite is not None:
+        group.update(notfinite_count=int(np.asarray(finite.notfinite_count)),
+                     last_finite=bool(np.asarray(finite.last_finite)),
+                     total_notfinite=int(np.asarray(finite.total_notfinite)))
+    return {"state": state, "param_groups": [group]}
 
 
 # ------------------------------------------------------------- Mask R-CNN

@@ -5,6 +5,8 @@ with
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -235,3 +237,116 @@ def test_fused_ds_step_launches_each_kernel(card, tmp_path):
              RA.multilevel_roi_align.launches)
     assert [a - b for a, b in zip(after, counts)] == [1, 8, 2, 2]
     assert torch.isfinite(metrics["loss"])
+
+
+# ------------------------------------- the step options and IEEE divisions
+
+
+def _small_batch(card, b=2, h=64, w=96, seed=0):
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+
+    colors, K = synthetic_batch(b, h, w, seed=seed)
+    return {"colors_u8": torch.from_numpy(colors).to(card), "K": torch.from_numpy(K).to(card)}
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_augment_and_post_processing_equal_the_cpu_bitwise(card, train):
+    """augment_batch (train with the same draws, and eval) and the TG and T
+    post-processing on the card equal the CPU's bit for bit: every division
+    by a constant is an IEEE division on both (``utils.divisor``)."""
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.augment import augment_batch, draw_augment, eval_preprocess
+    from mdn_sfm_tpu_torch.geometry import gauss_distance_weight
+    from mdn_sfm_tpu_torch.losses import post_process_epipolar
+
+    cfg = Config(height=192, width=640, batch_size=4, mode=Mode.TG, threshold=9.22).validate()
+    batch = _small_batch("cpu", 4, 192, 640, seed=1)
+    draws = draw_augment(4, 192, 640, torch.Generator().manual_seed(2)) if train else None
+    out = {}
+    for dev in ("cpu", card):
+        colors, inv_Ks, raw0 = augment_batch(cfg, batch["colors_u8"].to(dev), batch["K"].to(dev), draws=draws,
+                                             train=train)
+        resid = colors[(0, 0)][..., :1].abs() * 7.0  # a map of the loss's shape and range
+        gw = gauss_distance_weight(192, 640, 1, cfg.gauss_sigma1, cfg.gauss_sigma2, dev)[0]
+        out[dev] = [*colors.values(), *inv_Ks.values(), raw0, eval_preprocess(batch["colors_u8"].to(dev)),
+                    *post_process_epipolar(Mode.TG, resid, threshold=9.22, gauss_weight=gw),
+                    *post_process_epipolar(Mode.T, resid, threshold=9.22)]
+    for i, (a, b) in enumerate(zip(out["cpu"], out[card])):
+        assert torch.equal(a, b.cpu()), (i, float((a - b.cpu()).abs().max()))
+
+
+def test_fine_tune_step_takes_the_plain_map_with_no_launch(card):
+    """fine_tune_flow_motion: the step's maps are the plain version with
+    autograd, no kernel launch; on the same inputs they equal the kernel's
+    maps, and so do the losses."""
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.augment import augment_batch
+    from mdn_sfm_tpu_torch.losses import compute_losses
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+
+    cfg = Config(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                 fine_tune_flow_motion=True, compute_dtype="float32").validate()
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), card)
+    opt = T.make_optimizer(cfg, models, 10)
+    n0 = E.epipolar_abs_residual_maps.launches
+    m, _ = T.train_step(cfg, models, opt, _small_batch(card), generator=T.step_generator(0, 0, card))
+    torch.cuda.synchronize()
+    assert E.epipolar_abs_residual_maps.launches == n0 and torch.isfinite(m["loss"])
+
+    batch = _small_batch(card)
+    colors, inv_Ks, _ = augment_batch(cfg, batch["colors_u8"], batch["K"], train=False)
+    with torch.no_grad():
+        f, mob, _, _, cam = T.forward_frame(cfg, models, colors[(0, 0)], colors[(1, 0)])
+    flows = {(i, s): f[s] for i in cfg.ref_frame_ids for s in cfg.scales}
+    mobiles = {(i, s): mob[s] for i in cfg.ref_frame_ids for s in cfg.scales}
+    cams = {i: cam for i in cfg.ref_frame_ids}
+    plain, plain_aux = compute_losses(cfg, colors, inv_Ks, flows, mobiles, cams)
+    assert E.epipolar_abs_residual_maps.launches == n0
+    frozen = dataclasses.replace(cfg, fine_tune_flow_motion=False)
+    kern, kern_aux = compute_losses(frozen, colors, inv_Ks, flows, mobiles, cams)
+    torch.cuda.synchronize()
+    assert E.epipolar_abs_residual_maps.launches == n0 + 1
+    for key, v in plain_aux.epipolar_ori.items():
+        assert float((v - kern_aux.epipolar_ori[key]).abs().max()) <= REL_TOL * float(v.abs().max())
+    for k, v in plain.items():
+        assert abs(float(v) - float(kern[k])) <= REL_TOL * abs(float(v)), k
+
+
+def test_bn_train_step_launches_the_kernel_once_for_8_maps(card):
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+
+    cfg = Config(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                 bn_frozen_eval=False).validate()
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), card)
+    before = models.flow.encoder.encoder.bn1.running_mean.clone()
+    opt = T.make_optimizer(cfg, models, 10)
+    n0 = E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps
+    m, _ = T.train_step(cfg, models, opt, _small_batch(card), generator=T.step_generator(0, 0, card))
+    torch.cuda.synchronize()
+    assert (E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps) == (n0[0] + 1, n0[1] + 8)
+    assert torch.isfinite(m["loss"]) and not torch.equal(before, models.flow.encoder.encoder.bn1.running_mean)
+
+
+def test_skipped_step_leaves_the_state_as_it_was(card):
+    """skip_nonfinite_updates on the card: a step with a NaN intrinsic
+    changes no param, μ, ν or count, bit for bit; the next step applies."""
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+
+    cfg = Config(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                 skip_nonfinite_updates=True).validate()
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), card)
+    opt = T.make_optimizer(cfg, models, 10)
+    T.train_step(cfg, models, opt, _small_batch(card), generator=T.step_generator(0, 0, card))
+    before = [t.clone() for t in [p.detach() for p in opt.params] + opt.mu + opt.nu]
+    bad = _small_batch(card, seed=1)
+    bad["K"][0, 0, 0] = float("nan")
+    T.train_step(cfg, models, opt, bad, generator=T.step_generator(0, 1, card))
+    after = [p.detach() for p in opt.params] + opt.mu + opt.nu
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert (opt.count, int(opt.notfinite_count), int(opt.total_notfinite)) == (1, 1, 1)
+    T.train_step(cfg, models, opt, _small_batch(card, seed=2), generator=T.step_generator(0, 2, card))
+    assert opt.count == 2 and int(opt.notfinite_count) == 0

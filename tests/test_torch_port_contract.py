@@ -24,10 +24,14 @@ NEW_MODULES = ("trainer", "checkpoints", "native", "labels", "metrics", "viz", "
 EVAL_CLIS = ("evaluate_mix", "evaluate_mask", "evaluate_flow", "evaluate_pose", "reproduce_readme_table")
 # the DS/DC slice: the mask providers, the Mask R-CNN and its two kernels
 MASK_MODULES = ("masks", "masks.providers", "masks.maskrcnn", "precompute_masks", "ops.nms", "ops.roi_align")
+# the step options' slice: the synthetic rehearsal and its crafted detector
+REHEARSAL_MODULES = ("synthetic_e2e", "masks.crafted")
 
 
 def _run(*args: str, timeout: int = 300):
-    return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    # one torch thread a subprocess, as the test workers run beside each other
+    return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -54,7 +58,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 25
-    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES} <= names
+    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES + REHEARSAL_MODULES} <= names
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
@@ -167,22 +171,42 @@ def test_eval_flags_match_jax():
     assert tc.parse_eval_cli("eval", [])[1] == "cuda"
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [
-        ("remat", True),
-        ("accum_steps", 2),
-        ("fine_tune_flow_motion", True),
-        ("bn_frozen_eval", False),
-        ("num_data_shards", 2),
-        ("skip_nonfinite_updates", True),
-        ("use_pallas_epipolar", False),
-        ("steps_per_dispatch", 2),
-    ],
-)
+@pytest.mark.parametrize("field,value", [("num_data_shards", 2), ("steps_per_dispatch", 2)])
 def test_unimplemented_options_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tc.Config(**{field: value}).validate()
+
+
+@pytest.mark.parametrize(
+    "field,value",
+    [("remat", True), ("accum_steps", 2), ("fine_tune_flow_motion", True), ("bn_frozen_eval", False),
+     ("skip_nonfinite_updates", True), ("use_pallas_epipolar", False)],
+)
+def test_step_options_validate_and_read_from_the_flags(field, value):
+    """The step options are the port's too: each validates, and the train
+    flags (``use_pallas_epipolar`` has none) set it as the JAX package's
+    flags do."""
+    assert getattr(tc.Config(**{field: value}).validate(), field) == value
+    if field not in jc._TRAIN_FIELDS:
+        return
+    argv = [f"--{field}"] if isinstance(value, bool) and value else [f"--{field}", str(value)]
+    assert json.loads(tc.parse_train_config(argv).to_json()) == json.loads(jc.parse_train_config(argv).to_json())
+
+
+def test_synthetic_e2e_refuses_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    res = _run("-m", "mdn_sfm_tpu_torch.synthetic_e2e", "--modes", "SN", "--steps1", "1", "--steps2", "1")
+    assert res.returncode != 0 and "CUDA is not available" in res.stderr and '"modes"' not in res.stdout
+
+
+def test_synthetic_e2e_runs_on_cpu_when_asked(tmp_path):
+    res = _run("-m", "mdn_sfm_tpu_torch.synthetic_e2e", "--device", "cpu", "--modes", "SN", "--height", "32",
+               "--width", "64", "--batch_size", "2", "--eval_batch", "2", "--steps1", "1", "--steps2", "1",
+               "--k_steps", "1", "--log_dir", str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert list(out["modes"]) == ["SN"] and out["modes"]["SN"]["steps2"] == 1
 
 
 @pytest.mark.parametrize("provider", ["none", "precomputed", "maskrcnn"])

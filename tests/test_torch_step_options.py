@@ -1,0 +1,354 @@
+"""The train step's options: train-mode BN, ``accum_steps``, ``remat`` and
+``skip_nonfinite_updates``.
+
+One JAX run: the frozen nets with train-mode BN over the stacked batch
+(``bn_frozen_eval=False``) and ``accum_steps=2``, TG, float32,
+``disable_augment``, 2 steps: the loss terms, ``grad_norm``, the post-Adam
+decoder params and flow's and pose's running statistics (updated once per
+microbatch, in order) against JAX's. The rest holds each option against the
+port's plain step, at the JAX package's own bounds (its
+``tests/test_training.py``), and the skip against ``optax.apply_if_finite``."""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from mdn_sfm_tpu import training as JT
+from mdn_sfm_tpu.config import Config as JConfig, Mode as JMode
+from mdn_sfm_tpu.data.synthetic import synthetic_batch
+from mdn_sfm_tpu_torch import checkpoints as ckpt
+from mdn_sfm_tpu_torch import training as TT
+from mdn_sfm_tpu_torch.config import Config, Mode
+from mdn_sfm_tpu_torch.weights import adam_state_from_optax, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (module-scoped fixture)
+
+B, H, W = 4, 32, 64
+STEPS = 2
+STEPS_PER_EPOCH = 10
+LR = 1e-4
+# against JAX: tests/test_torch_train_step.py's bounds (measured here: the
+# metrics within 3.3e-6 and 2.2e-6 relative at steps 0 and 1)
+LOSS_RTOL = (1e-5, 3e-5)
+PARAM_ATOL = 2e-5
+NOISE_FLOOR_SHARE = 1e-4
+# the running averages: 0.9·old + 0.1·(the microbatch's mean or biased
+# variance), twice a step, the statistics summed in another order
+# (measured: within 3.1e-6 absolute)
+BN_RTOL, BN_ATOL = 1e-5, 1e-6
+# remat against the plain step: the JAX package's bounds (its replay is
+# bitwise; so is the port's on the CPU)
+REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-7
+# accum against the plain step: the JAX package's (loss rel ≤ 1e-6, params
+# ≤ 2e-5 after Adam)
+ACCUM_LOSS_RTOL, ACCUM_PARAM_ATOL = 1e-6, 2e-5
+
+KW = dict(height=H, width=W, batch_size=B, threshold=9.22, w_d2_sim=0.0, compute_dtype="float32")
+
+
+def _batch(seed=0, b=B):
+    colors, K = synthetic_batch(b, H, W, seed=seed)
+    return {"colors_u8": torch.from_numpy(colors), "K": torch.from_numpy(K)}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    opts = dict(KW, disable_augment=True, bn_frozen_eval=False, accum_steps=2)
+    colors, K = synthetic_batch(B, H, W, seed=0)
+    jcfg = JConfig(mode=JMode.TG, donate_state=False, **opts).validate()
+    models = JT.build_models(jcfg)
+    variables = jax.device_get(JT.init_variables(jcfg, models, jax.random.PRNGKey(0)))
+    tx = JT.make_optimizer(jcfg, STEPS_PER_EPOCH)
+    state, frozen = JT.create_train_state(jcfg, models, variables, tx)
+    step = JT.make_train_step(jcfg, models, tx)
+    jmetrics = []
+    for _ in range(STEPS):
+        state, frozen, m, _ = step(state, frozen, {"colors_u8": colors, "K": K}, jax.random.PRNGKey(1))
+        jmetrics.append({k: float(v) for k, v in m.items()})
+
+    cfg = Config(mode=Mode.TG, **opts).validate()
+    tmodels = TT.build_models(cfg, device="cpu")
+    for net, module in zip(("flownet", "posenet", "mobile_decoder"), (tmodels.flow, tmodels.pose, tmodels.mobile)):
+        module.load_state_dict(state_dict_from_flax(net, variables[net]), strict=True)
+    opt = TT.make_optimizer(cfg, tmodels, STEPS_PER_EPOCH)
+    tmetrics = [{k: float(v) for k, v in TT.train_step(cfg, tmodels, opt, _batch())[0].items()}
+                for _ in range(STEPS)]
+    return dict(state=jax.device_get(state), frozen=jax.device_get(frozen), jmetrics=jmetrics,
+                models=tmodels, tmetrics=tmetrics)
+
+
+# ------------------------------------------------- train-mode BN and accum
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_bn_train_accum_metrics_match_jax(runs, step):
+    jm, tm = runs["jmetrics"][step], runs["tmetrics"][step]
+    assert set(tm) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(tm[k], jm[k], rtol=LOSS_RTOL[step], err_msg=k)
+
+
+def test_bn_train_accum_decoder_params_match_jax(runs):
+    want = state_dict_from_flax("mobile_decoder", {"params": runs["state"].params["mobile_decoder"]})
+    got = runs["models"].mobile.state_dict()
+    diff = np.concatenate([np.abs(got[k].numpy() - v.numpy()).ravel() for k, v in want.items()])
+    assert diff.max() <= 2 * LR * STEPS
+    assert (diff > PARAM_ATOL).mean() <= NOISE_FLOOR_SHARE
+
+
+@pytest.mark.parametrize("net", ("flownet", "posenet"))
+def test_bn_running_statistics_match_jax(runs, net):
+    """Flax's update with the biased batch variance, once per microbatch in
+    order, carried out of each step in the modules' buffers; the frozen
+    nets' params untouched."""
+    want = state_dict_from_flax(net, dict(runs["frozen"][net]))
+    module = TT.modules_by_name(runs["models"])[net]
+    buffers = dict(module.named_buffers())
+    assert len(buffers) == 40  # 20 BatchNorms of a ResNet18 trunk
+    for k, v in buffers.items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=BN_RTOL, atol=BN_ATOL, err_msg=k)
+        init = 0.0 if k.endswith("running_mean") else 1.0
+        assert float((v - init).abs().max()) > 1e-3, k  # they moved
+    for k, p in module.named_parameters():
+        assert torch.equal(p.detach(), want[k]), k
+
+
+def test_bn_update_uses_the_biased_variance():
+    """One train-mode forward of a BatchNorm: 0.9·old + 0.1·(mean, biased
+    variance), not torch's unbiased n/(n−1)."""
+    from mdn_sfm_tpu_torch.models.resnet import BatchNorm2d
+
+    bn = BatchNorm2d(3).train()
+    x = torch.randn(2, 3, 2, 2, generator=torch.Generator().manual_seed(0))
+    bn(x)
+    np.testing.assert_allclose(bn.running_mean.numpy(), 0.1 * x.mean((0, 2, 3)).numpy(), rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(bn.running_var.numpy(), 0.9 + 0.1 * x.var((0, 2, 3), unbiased=False).numpy(),
+                               rtol=1e-6)
+
+
+# ------------------------------------------------------------------ remat
+
+
+def _run(cfg, steps=STEPS, seed=0, augment_seed=None):
+    models = TT.build_models(cfg, torch.Generator().manual_seed(seed), "cpu")
+    opt = TT.make_optimizer(cfg, models, STEPS_PER_EPOCH)
+    out = []
+    for s in range(steps):
+        gen = TT.step_generator(augment_seed, s, "cpu") if augment_seed is not None else None
+        out.append(TT.train_step(cfg, models, opt, _batch(seed=s), generator=gen))
+    return models, opt, [{k: float(v) for k, v in m.items()} for m, _ in out], [a for _, a in out]
+
+
+def _all_state(models) -> dict:
+    return {f"{n}.{k}": v for n, m in TT.modules_by_name(models).items() for k, v in m.state_dict().items()}
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(fine_tune_flow_motion=True, bn_frozen_eval=False,
+                                                disable_photoloss=False)], ids=["frozen", "fine_tune_bn_train"])
+def test_remat_matches_the_plain_step(opts):
+    """``remat`` replays the stacked forward in backward: the same metrics
+    and params, and flow's and pose's BN averages updated once a step, not
+    again by the replay."""
+    cfg = Config(mode=Mode.TG, disable_augment=True, **KW, **opts).validate()
+    plain, _, pm, _ = _run(cfg)
+    remat, _, rm, _ = _run(dataclasses.replace(cfg, remat=True))
+    for a, b in zip(pm, rm):
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=REMAT_RTOL, atol=REMAT_ATOL, err_msg=k)
+    ps, rs = _all_state(plain), _all_state(remat)
+    for k, v in ps.items():
+        np.testing.assert_allclose(rs[k].numpy(), v.numpy(), rtol=REMAT_RTOL, atol=REMAT_ATOL, err_msg=k)
+    if not cfg.bn_frozen_eval:
+        # a second update by the replay would land elsewhere: one more
+        # train-mode forward moves them
+        twice = TT.build_models(cfg, torch.Generator().manual_seed(0), "cpu")
+        twice.flow.load_state_dict(remat.flow.state_dict())
+        colors = torch.rand(2 * B, 3, H, W, generator=torch.Generator().manual_seed(1))
+        with TT._bn_train(twice):
+            twice.flow(colors, colors)
+        k = "encoder.encoder.bn1.running_mean"
+        assert not torch.equal(twice.flow.state_dict()[k], remat.flow.state_dict()[k])
+
+
+# ------------------------------------------------------------------ accum
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(fine_tune_flow_motion=True)], ids=["frozen", "fine_tune"])
+def test_accum_matches_the_plain_step(opts):
+    """``accum_steps=2`` with augmentation on: each sample takes the draw
+    it takes at 1 (the draws are made once and sliced), so the aux maps
+    equal the plain step's; the averaged gradient makes the same update
+    within the JAX package's bounds; aux has the whole batch's shapes."""
+    cfg = Config(mode=Mode.TG, **KW, **opts).validate()
+    plain, popt, pm, pa = _run(cfg, augment_seed=3)
+    accum, aopt, am, aa = _run(dataclasses.replace(cfg, accum_steps=2), augment_seed=3)
+    for a, b in zip(pm, am):
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=ACCUM_LOSS_RTOL)
+        # the terms at the loss's precision: consis (~1e-5) compares two
+        # nearly equal maps, so its own relative error is larger
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=ACCUM_LOSS_RTOL * a["loss"], err_msg=k)
+    for field, d in zip(pa[0]._fields, pa[0]):
+        for key, v in d.items():
+            got = getattr(aa[0], field)[key]
+            assert got.shape == v.shape, (field, key)
+            np.testing.assert_allclose(got.numpy(), v.numpy(), rtol=1e-5, atol=1e-6, err_msg=f"{field} {key}")
+    ps, as_ = _all_state(plain), _all_state(accum)
+    diff = max(float((as_[k] - v).abs().max()) for k, v in ps.items())
+    assert diff <= ACCUM_PARAM_ATOL
+    assert aopt.count == popt.count == STEPS
+
+
+def test_accum_refuses_a_batch_it_does_not_divide():
+    cfg = Config(mode=Mode.TG, disable_augment=True, accum_steps=3, **KW).validate()
+    models = TT.build_models(cfg, device="cpu")
+    with pytest.raises(ValueError, match="divide by accum_steps"):
+        TT.train_step(cfg, models, TT.make_optimizer(cfg, models, 10), _batch())
+    with pytest.raises(ValueError, match="accum_steps"):
+        Config(accum_steps=0).validate()
+
+
+# --------------------------------------------------------- skip non-finite
+
+
+def test_skip_matches_optax_apply_if_finite():
+    """Finite, then non-finite steps beyond ``max_consecutive_errors``
+    (100), then finite again, against ``optax.apply_if_finite(chain(clip,
+    adam))``: params, μ, ν, the count and both counters after every step,
+    the 101st consecutive non-finite step applied as optax applies it."""
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=(4, 3)).astype(np.float32)
+    tx = optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(1.0), optax.adam(1e-2, b1=0.9, b2=0.999)),
+                               max_consecutive_errors=100)
+    params = {"w": jnp.asarray(p0)}
+    state = tx.init(params)
+    update = jax.jit(tx.update)
+    param = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = TT.Adam([param], lambda k: 1e-2, 0.9, 0.999, clip=1.0, skip_nonfinite=True)
+    plan = [1.0, np.nan, 2.0] + [np.inf] * 102 + [0.5, 3.0]
+    for i, kind in enumerate(plan):
+        g = rng.normal(size=(4, 3)).astype(np.float32) * (kind if np.isfinite(kind) else 1.0)
+        if not np.isfinite(kind):
+            g[1, 2] = kind
+        upd, state = update({"w": jnp.asarray(g)}, state, params)
+        params = optax.apply_updates(params, upd)
+        opt.step([torch.from_numpy(g)])
+        adam = state.inner_state[1][0]
+        got = (param.detach().numpy(), opt.mu[0].numpy(), opt.nu[0].numpy())
+        for a, b in zip(got, (params["w"], adam.mu["w"], adam.nu["w"])):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-7, equal_nan=True, err_msg=str(i))
+        assert opt.count == int(adam.count), i
+        assert int(opt.notfinite_count) == int(state.notfinite_count), i
+        assert int(opt.total_notfinite) == int(state.total_notfinite), i
+        assert bool(opt.last_finite) == bool(state.last_finite), i
+    assert opt.count == 2 + 2 + 2 and int(opt.total_notfinite) == 103  # 2 finite, the 101st and 102nd inf, 2 finite
+    # what optax's give-up does to a run: the inf element turns NaN for good
+    assert np.isnan(param.detach().numpy()[1, 2]) and np.isfinite(np.delete(param.detach().numpy(), 5)).all()
+
+
+def test_skip_in_the_train_step():
+    """A step whose loss is NaN (a NaN intrinsic in one sample) changes no
+    param, μ, ν or count, bit for bit, and counts; the next finite step
+    applies."""
+    cfg = Config(mode=Mode.TG, disable_augment=True, skip_nonfinite_updates=True, **KW).validate()
+    models = TT.build_models(cfg, device="cpu")
+    opt = TT.make_optimizer(cfg, models, STEPS_PER_EPOCH)
+    TT.train_step(cfg, models, opt, _batch())
+    before = ckpt.to_host({"p": [p.detach() for p in opt.params], "mu": opt.mu, "nu": opt.nu})
+    bad = _batch(seed=1)
+    bad["K"][1, 0, 0] = float("nan")
+    m, _ = TT.train_step(cfg, models, opt, bad)
+    assert not np.isfinite(float(m["loss"])) and not np.isfinite(float(m["grad_norm"]))
+    for key, tensors in before.items():
+        now = [p.detach() for p in opt.params] if key == "p" else getattr(opt, key)
+        assert all(torch.equal(a, b) for a, b in zip(now, tensors)), key
+    assert (opt.count, int(opt.notfinite_count), int(opt.total_notfinite), bool(opt.last_finite)) == (1, 1, 1, False)
+    TT.train_step(cfg, models, opt, _batch(seed=2))
+    assert (opt.count, int(opt.notfinite_count), int(opt.total_notfinite), bool(opt.last_finite)) == (2, 0, 1, True)
+    assert not all(torch.equal(a, b.detach()) for a, b in zip(before["p"], opt.params))
+
+
+def test_adam_and_skip_state_round_trip(tmp_path):
+    """adam.pth carries μ, ν, the count and the skip counters: a fresh Adam
+    that loads it continues them; ``torch.optim.Adam`` still loads it; and
+    ``adam_state_from_optax`` reads optax's ``ApplyIfFiniteState``."""
+    cfg = Config(mode=Mode.TG, disable_augment=True, skip_nonfinite_updates=True, **KW).validate()
+    models = TT.build_models(cfg, device="cpu")
+    opt = TT.make_optimizer(cfg, models, STEPS_PER_EPOCH)
+    rng = torch.Generator().manual_seed(0)
+    for g in (1.0, float("nan"), 1.0, float("inf")):
+        opt.step([torch.randn(p.shape, generator=rng) * g for p in opt.params])
+    folder = str(tmp_path / "w")
+    ckpt.save_checkpoint(folder, {}, ckpt.to_host(opt.state_dict()), step=4)
+    _, adam, _ = ckpt.load_checkpoint(folder, {}, (), load_adam=True)
+    fresh = TT.make_optimizer(cfg, TT.build_models(cfg, device="cpu"), STEPS_PER_EPOCH)
+    fresh.load_state_dict(adam)
+    assert (fresh.count, int(fresh.notfinite_count), int(fresh.total_notfinite), bool(fresh.last_finite)) == \
+        (opt.count, 1, 2, False) == (2, 1, 2, False)
+    assert all(torch.equal(a, b) for a, b in zip(fresh.mu + fresh.nu, opt.mu + opt.nu))
+    ref = torch.optim.Adam(list(models.mobile.parameters()), lr=cfg.learning_rate)
+    ref.load_state_dict(adam)
+    assert float(ref.state[ref.param_groups[0]["params"][0]]["step"]) == 2
+
+    jcfg = JConfig(skip_nonfinite_updates=True, **KW).validate()
+    jmodels = JT.build_models(jcfg)
+    variables = jax.device_get(JT.init_variables(jcfg, jmodels, jax.random.PRNGKey(0)))
+    tx = JT.make_optimizer(jcfg, STEPS_PER_EPOCH)
+    params = {"mobile_decoder": variables["mobile_decoder"]["params"]}
+    state = tx.init(params)
+    update = jax.jit(tx.update)
+    nrng = np.random.default_rng(1)
+    for g in (1.0, np.nan, np.nan):
+        grads = jax.tree.map(lambda p: (nrng.normal(size=p.shape) * g).astype(np.float32), params)
+        upd, state = update(grads, state, params)
+        params = optax.apply_updates(params, upd)
+    sd = adam_state_from_optax(jax.device_get(state), TT.trainable_param_names(cfg))
+    assert {k: sd["param_groups"][0][k] for k in ("notfinite_count", "last_finite", "total_notfinite")} == \
+        {"notfinite_count": 2, "last_finite": False, "total_notfinite": 2}
+    fresh.load_state_dict(sd)
+    assert (fresh.count, int(fresh.notfinite_count), int(fresh.total_notfinite)) == (1, 2, 2)
+    with pytest.raises(KeyError):
+        adam_state_from_optax(jax.device_get(state), {"mobile_decoder": TT.trainable_param_names(cfg)[
+            "mobile_decoder"], "flownet": []})
+    assert os.path.exists(os.path.join(folder, "adam.pth"))
+
+
+# ------------------------------------------------------- conditioning
+
+
+def test_fine_tune_steps_amplify_one_ulp():
+    """Why the card-against-CPU check of the fine-tune steps (chip_smoke.py
+    phase 9) holds step 1 looser than step 0: at 64×96, batch 2, with
+    train-mode BN, moving every flow param by one ulp moves the metrics by
+    under 1e-4 relative at step 0 (measured 2.5e-5) and by far more once
+    Adam's first update has acted on it at step 1 (measured 2.6e-3): the
+    gradient through layer4's batch statistics (2×3 pixels × 4 images a
+    channel) amplifies rounding. The main path's frozen-net TG step moves
+    by under 1e-4 at step 1 too (measured 3.7e-5)."""
+    colors, K = synthetic_batch(2, 64, 96, seed=0)
+    batch = {"colors_u8": torch.from_numpy(colors), "K": torch.from_numpy(K)}
+
+    def change(**opts):
+        cfg = Config(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                     compute_dtype="float32", disable_augment=True, **opts).validate()
+        runs = []
+        for ulp in (False, True):
+            models = TT.build_models(cfg, torch.Generator().manual_seed(0), "cpu")
+            if ulp:
+                with torch.no_grad():
+                    for p in models.flow.parameters():
+                        p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+            opt = TT.make_optimizer(cfg, models, STEPS_PER_EPOCH)
+            runs.append([{k: float(v) for k, v in TT.train_step(cfg, models, opt, batch)[0].items()}
+                         for _ in range(2)])
+        return [max(abs(runs[1][s][k] - runs[0][s][k]) / abs(runs[0][s][k]) for k in runs[0][s]) for s in range(2)]
+
+    ft = change(fine_tune_flow_motion=True, bn_frozen_eval=False)
+    assert ft[0] < 1e-4 and ft[1] > 10 * ft[0] and ft[1] > 3e-4, ft
+    main = change()
+    assert main[1] < 1e-4, main
