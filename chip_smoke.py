@@ -23,7 +23,13 @@ device trace of the fine-tune step, small f32 option steps on the card
 against the CPU, a skipped non-finite step with no added host sync, the
 Trainer fine-tuning (checkpoints of the three nets, an exact resume), and a
 short synthetic two-stage rehearsal (phase 1 photometric fine-tuning, the
-calibration, phase 2 in TG and in DS on GT masks and on the live Mask R-CNN).
+calibration, phase 2 in TG and in DS on GT masks and on the live Mask R-CNN);
+and K steps a dispatch as one replay of a CUDA graph captured over K steps
+(TG at K = 4 and 16, the fused DS step and the fine-tune step at K = 4, each
+beside its eager figures and with each kernel's launches counted inside the
+graph; a small f32 dispatch against eager steps on the card and against the
+CPU, with no host sync; the Trainer at steps_per_dispatch = 4 stopped and
+resumed).
 
 Prints one JSON object per phase, the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -126,6 +132,28 @@ REHEARSAL_ARGV = ["--height", "64", "--width", "128", "--batch_size", "4", "--ev
                   "--tg_lr_mult", "1.0", "--modes", "TG,DS", "--ds_providers", "semantic_gt,maskrcnn@2",
                   "--bright_world", "--obj_shift", "6", "--obj_size", "16"]
 EPE_CUT = 0.7           # phase 1 must bring the eval flow EPE under this share of its start
+
+# Phase 10, steps_per_dispatch > 1: K steps a dispatch, one replay of a CUDA
+# graph captured over K steps, at the main path's width
+DISPATCH_KS = (4, 16)   # TG; 16 is tools/bench_e2e.py's default
+DISPATCH_K = 4          # DS with the fused Mask R-CNN, fine-tune, the f32 check, the Trainer
+DISPATCH_TIMED = 5      # timed dispatches after one warm dispatch (≥ 5)
+EAGER_TRACE_STEPS = 3   # eager steps in each configuration's device trace, beside the graph's
+# the f32 dispatch against eager steps on the card: step 0's losses carry no
+# atomics and must be equal bit for bit. grad_norm and the later steps must
+# sit within NOISE_MARGIN times the largest gap between EAGER_RUNS eager runs
+# of the same steps (the reflection pads' backward adds with atomics, and a
+# gradient at that noise flips the sign of Adam's update, so the runs fall
+# into a few modes, and a few runs may all land in one), or within the f32
+# step's 3e-5 relative; the params within NOISE_MARGIN times the eager runs'
+# largest gap, or phase 5's rule (2·lr a step, few past 2e-5)
+EAGER_RUNS = 4
+NOISE_MARGIN = 2.0
+F32_RTOL = 3e-5
+GRAPH_TRAINER_STEPS = 14  # the Trainer at K = 4: three dispatches and a tail of two single steps
+# the runtime calls that put work on the device, counted in a dispatch's trace
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s
 # and float32 FLOP/s outside the tensor cores.
@@ -1141,7 +1169,8 @@ def ds_dc_phase(smi: str) -> dict:
         raise AssertionError("the DS/DC phase failed (see its line)")
     main_rec = runs[("DS", D2_THRESHOLDS[0])]
     return {"checks": [checks, backend_checks], "times": times, "backend_times": backend_times,
-            "launches": {"nms": main_rec["nms_launches"], "roi_align": main_rec["roi_align_launches"]}}
+            "launches": {"nms": main_rec["nms_launches"], "roi_align": main_rec["roi_align_launches"]},
+            "runs": runs}
 
 
 def mask_kernel_entries(ds: dict) -> list[dict]:
@@ -1552,6 +1581,337 @@ def options_phase(smi: str) -> dict:
     return {"runs": runs, "trainer": trainer, "rehearsal": rehearsal}
 
 
+def _zero_counts() -> None:
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops import nms as N
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    E.epipolar_abs_residual_maps.launches = E.epipolar_abs_residual_maps.maps = 0
+    N.nms.launches = RA.multilevel_roi_align.launches = 0
+
+
+def _counts() -> dict:
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops import nms as N
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    return {"epipolar_launches": E.epipolar_abs_residual_maps.launches,
+            "epipolar_maps": E.epipolar_abs_residual_maps.maps,
+            "nms_launches": N.nms.launches, "roi_align_launches": RA.multilevel_roi_align.launches}
+
+
+def device_trace(fn, steps: int) -> dict:
+    """A torch.profiler trace (host and device) of ``fn``, which runs
+    ``steps`` train steps: its wall clock, the device's busy time and idle
+    share, the host's launch calls and the device's kernels a step, and
+    how often each of the port's kernels ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdn_sfm_tpu_torch.profile_step import _device_kernels, _union_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = _device_kernels(prof)
+    host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name in HOST_LAUNCH_CALLS]
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    named = {name: sum(key in e.name for e in kernels) for name, key in
+             (("epipolar", "epipolar_abs_residual_maps_kernel"), ("nms", "nms_kernel"),
+              ("roi_align", "roi_align_kernel"))}
+    return {"wall_ms_per_step": wall_ms / steps, "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "host_launch_calls_per_step": len(host) / steps,
+            "host_launch_calls": {n: sum(e.name == n for e in host) for n in HOST_LAUNCH_CALLS
+                                  if any(e.name == n for e in host)},
+            "device_kernels_per_step": len(kernels) / steps, "port_kernels": named}
+
+
+def graph_run(name: str, cfg, k: int, batches: list, smi: str, eager: dict, provider=None) -> dict:
+    """One configuration at K steps a dispatch: an eager trace of
+    EAGER_TRACE_STEPS steps, then the capture (timed), one warm dispatch and
+    DISPATCH_TIMED timed ones (host clock around each, draws included, ending
+    in a sync), the peak memory from before the capture, each kernel's
+    launches in those dispatches (counts set to 0 after the capture), and a
+    trace of one dispatch, whose kernels must hold each port kernel's
+    launches of its K steps. ``eager``: the same configuration's eager
+    median and peak from its earlier phase."""
+    import torch
+
+    from mdn_sfm_tpu_torch import training as T
+
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
+    stacked = {key: torch.stack([batches[j % len(batches)][key] for j in range(k)]) for key in batches[0]}
+    one = {key: v[0] for key, v in stacked.items()}
+    step = [0]
+
+    def eager_steps():
+        for _ in range(EAGER_TRACE_STEPS):
+            T.train_step(cfg, models, opt, one, generator=T.step_generator(cfg.seed, step[0], "cuda"),
+                         provider=provider)
+            step[0] += 1
+
+    eager_steps()  # warm
+    eager_trace = device_trace(eager_steps, EAGER_TRACE_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kstep = T.make_multi_train_step(cfg, models, opt, k, provider=provider)
+    kstep.capture(stacked, T.multi_step_draws(cfg, stacked, step[0]))
+
+    def dispatch():
+        m, _ = kstep(stacked, T.multi_step_draws(cfg, stacked, step[0]))
+        step[0] += k
+        return m
+
+    _zero_counts()
+    losses = [float(dispatch()["loss"])]
+    times = []
+    for _ in range(DISPATCH_TIMED):
+        t0 = time.perf_counter()
+        m = dispatch()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / k)
+        losses.append(float(m["loss"]))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trace = device_trace(dispatch, k)
+    per_step = {"epipolar_launches": 1, "epipolar_maps": 8,
+                "nms_launches": 2 if provider is not None else 0,
+                "roi_align_launches": 2 if provider is not None else 0}
+    if cfg.fine_tune_flow_motion:  # the plain map with autograd: no kernel
+        per_step.update(epipolar_launches=0, epipolar_maps=0)
+    n_steps = k * (1 + DISPATCH_TIMED)
+    expected = {c: n * n_steps for c, n in per_step.items()}
+    in_trace = {"epipolar": per_step["epipolar_launches"] * k, "nms": per_step["nms_launches"] * k,
+                "roi_align": per_step["roi_align_launches"] * k}
+    med = statistics.median(times)
+    finite = all(math.isfinite(x) for x in losses)
+    rec = {"config": name, "k": k, "capture_s": kstep.capture_seconds,
+           "median_ms_per_step": 1e3 * med, "ms_per_step": [1e3 * t for t in times],
+           "eager_median_step_ms": eager["median_step_ms"], "speedup_vs_eager": eager["median_step_ms"] / (1e3 * med),
+           "peak_mem_gib": peak, "eager_peak_mem_gib": eager["peak_mem_gib"],
+           "captured_launches": kstep.captured_launches, **counts, "expected": expected,
+           "trace_dispatch": trace, "expected_in_trace": in_trace, "trace_eager": eager_trace,
+           "losses": losses, "losses_finite": finite}
+    ok = (finite and all(counts[c] == v for c, v in expected.items())
+          and trace["port_kernels"] == in_trace and kstep.replays == 2 + DISPATCH_TIMED)
+    emit({"phase": "graph_dispatch", **rec, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the {name} dispatch at K = {k} failed (see its line)")
+    del kstep
+    return rec
+
+
+def _gaps(runs: list) -> tuple[dict, float]:
+    """The largest gap between any two of ``runs`` of the same steps: per
+    metric over its steps, and over the params."""
+    metric = {key: max(float((a[0][key] - b[0][key]).abs().max()) for i, a in enumerate(runs) for b in runs[i + 1:])
+              for key in runs[0][0]}
+    param = max(max(float((x - y).abs().max()) for x, y in zip(a[1], b[1])) for i, a in enumerate(runs)
+                for b in runs[i + 1:])
+    return metric, param
+
+
+def graph_f32_check() -> dict:
+    """A K = DISPATCH_K dispatch at the CPU tests' size (64×96, batch 2, f32,
+    augmentation on) against K eager steps on the card from the same state
+    and the same draws, EAGER_RUNS times, and against the CPU's K steps on
+    those draws (phase 5's bounds); then a dispatch replayed under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import numpy as np
+    import torch
+
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+
+    k = DISPATCH_K
+    cfg = Config(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                 compute_dtype="float32").validate()
+    pairs = [synthetic_batch(2, 64, 96, seed=s) for s in range(k)]
+    host = {"colors_u8": torch.from_numpy(np.stack([c for c, _ in pairs])),
+            "K": torch.from_numpy(np.stack([q for _, q in pairs]))}
+    cuda = {key: v.cuda() for key, v in host.items()}
+    draws = T.multi_step_draws(cfg, cuda, 0)
+
+    def fresh(dev):
+        models = T.build_models(cfg, torch.Generator().manual_seed(0), dev)
+        return models, T.make_optimizer(cfg, models, steps_per_epoch=10)
+
+    def eager(dev, batches, d):
+        models, opt = fresh(dev)
+        per = [T.train_step(cfg, models, opt, {key: v[j] for key, v in batches.items()},
+                            draws={key: v[j] for key, v in d.items()})[0] for j in range(k)]
+        return {key: torch.stack([m[key] for m in per]).cpu() for key in per[0]}, [p.detach().cpu() for p in opt.params]
+
+    runs = [eager("cuda", cuda, draws) for _ in range(EAGER_RUNS)]
+    models, opt = fresh("cuda")
+    kstep = T.make_multi_train_step(cfg, models, opt, k)
+    kstep(cuda, draws)
+    graph = ({key: v.cpu() for key, v in kstep.step_metrics.items()}, [p.detach().cpu() for p in opt.params])
+    cpu_models, cpu_opt = fresh("cpu")
+    cpu_k = T.make_multi_train_step(cfg, cpu_models, cpu_opt, k)
+    cpu_k(host, {key: v.cpu() for key, v in draws.items()})
+    cpu = ({key: v.clone() for key, v in cpu_k.step_metrics.items()}, [p.detach() for p in cpu_opt.params])
+
+    noise, pnoise = _gaps(runs)
+    step0_equal = all(torch.equal(graph[0][key][0], r[0][key][0]) for r in runs for key in graph[0] if key != "grad_norm")
+    vs_eager = {key: float((graph[0][key] - runs[0][0][key]).abs().max()) for key in graph[0]}
+    within_noise = {key: vs_eager[key] <= NOISE_MARGIN * noise[key] for key in vs_eager}
+    within_rtol = {key: bool(((graph[0][key] - runs[0][0][key]).abs() <= F32_RTOL * runs[0][0][key].abs()).all())
+                   for key in vs_eager}
+    pdiff_all = torch.cat([(x - y).abs().flatten() for x, y in zip(graph[1], runs[0][1])])
+    pdiff = float(pdiff_all.max())
+    p_rule = pdiff <= 2 * cfg.learning_rate * k and float((pdiff_all > 2e-5).float().mean()) <= 1e-4
+    within = (all(within_noise[key] or within_rtol[key] for key in vs_eager)
+              and (pdiff <= NOISE_MARGIN * pnoise or p_rule))
+    rtols = [1e-5] + [3e-5] * (k - 1)  # phase 5: step 0 from equal params, later steps after Adam's updates
+    rel = [max(abs(float(graph[0][key][j]) - float(cpu[0][key][j])) / max(abs(float(cpu[0][key][j])), 1e-12)
+               for key in cpu[0]) for j in range(k)]
+    cdiff = torch.cat([(x - y).abs().flatten() for x, y in zip(graph[1], cpu[1])])
+    cpu_ok = (all(r <= t for r, t in zip(rel, rtols)) and float(cdiff.max()) <= 2 * cfg.learning_rate * k
+              and float((cdiff > 2e-5).float().mean()) <= 1e-4)
+
+    # the dispatch's host syncs: none, or the "error" mode raises
+    torch.cuda.set_sync_debug_mode("warn")  # the first switch of the mode may sync itself
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kstep(cuda, T.multi_step_draws(cfg, cuda, k))
+        no_sync = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ok = step0_equal and within and cpu_ok and no_sync and opt.count == 2 * k
+    return {"k": k, "shape": [2, 64, 96], "step0_losses_bitwise_equal": step0_equal,
+            "graph_vs_eager_max_abs": vs_eager, "eager_vs_eager_max_abs": noise,
+            "graph_vs_eager_param_max_abs": pdiff, "eager_vs_eager_param_max_abs": pnoise,
+            "eager_runs": EAGER_RUNS, "noise_margin": NOISE_MARGIN, "within_eager_noise": within_noise,
+            "within_f32_rtol": within_rtol, "f32_rtol": F32_RTOL, "params_within_phase5_rule": p_rule,
+            "graph_equals_eager": within,
+            "graph_vs_cpu_metric_rel_err": rel, "tol_rel": rtols,
+            "graph_vs_cpu_param_max_abs": float(cdiff.max()),
+            "graph_vs_cpu_param_share_over_2e-5": float((cdiff > 2e-5).float().mean()), "cpu_ok": cpu_ok,
+            "replay_under_sync_error_mode": no_sync, "ok": ok}
+
+
+def graph_trainer_run(base: str, smi: str) -> dict:
+    """The Trainer at steps_per_dispatch = DISPATCH_K (TG, 640×192, bs4,
+    bf16): run A, GRAPH_TRAINER_STEPS steps (three dispatches, a tail of two
+    single steps) with a checkpoint every 4; run B stopped after its first
+    dispatch; run B2 resumed with ``resume="auto"``, whose loaded params and
+    Adam equal B's at its stop bit for bit, which takes A's batches, and
+    lands within phase 6's bounds of A's params."""
+    import torch
+
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.trainer import Trainer
+
+    def config(v_save: str, **kw) -> Config:
+        return Config(height=HEIGHT, width=WIDTH, batch_size=BATCH, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                      compute_dtype="bfloat16", num_epochs=1, limit_train_samples=BATCH * GRAPH_TRAINER_STEPS,
+                      save_frequency=SAVE_EVERY, log_frequency=10**6, num_workers=2,
+                      log_dir=os.path.join(base, "log"), other_files_path=os.path.join(base, "files"),
+                      v_save=v_save, steps_per_dispatch=DISPATCH_K, **kw).validate()
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    tA = Trainer(config("vA"), synthetic=True, device="cuda")
+    tA.train()
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    params_A, _ = _mobile_and_adam(tA)
+    tB = Trainer(config("vB"), synthetic=True, device="cuda")
+    inner = tB.multi_fn
+
+    def stop_after_dispatch(*a):
+        out = inner(*a)
+        tB._stop_requested = True  # what the SIGTERM handler sets
+        return out
+
+    tB.multi_fn = stop_after_dispatch
+    tB.train()
+    params_stop, adam_stop = _mobile_and_adam(tB)
+    tB2 = Trainer(config("vB", resume="auto"), synthetic=True, device="cuda")
+    params_loaded, adam_loaded = _mobile_and_adam(tB2)
+    loaded_exact = (_params_equal(params_loaded, params_stop) and _adam_equal(adam_loaded, adam_stop)
+                    and tB2.start_step == tB.opt.count == DISPATCH_K)
+    tB2.train()
+    params_B, _ = _mobile_and_adam(tB2)
+    same_batches = tB.sample_history + tB2.sample_history == tA.sample_history
+    diff, mean_diff = _drift(params_B, params_A)
+    finite = all(bool(torch.isfinite(v).all()) for v in params_A.values())
+    # the launches of run A: its steps, and the eager warm-up of its capture
+    expected = GRAPH_TRAINER_STEPS + DISPATCH_K
+    rec = {"steps_per_dispatch": DISPATCH_K, "steps": GRAPH_TRAINER_STEPS, "capture_s": tA.capture_seconds,
+           "run_A_wall_s": wall_s, "steps_logged": [(s, 1e3 * t, loss) for s, t, loss in tA.step_log],
+           "epipolar_launches": counts["epipolar_launches"], "expected_launches": expected,
+           "resume_start_step": tB2.start_step, "resume_loaded_exact": loaded_exact,
+           "resume_same_batches": same_batches, "resume_max_param_abs_diff": diff,
+           "resume_param_atol": 2 * LR * (GRAPH_TRAINER_STEPS - DISPATCH_K),
+           "resume_mean_param_abs_diff": mean_diff, "resume_mean_atol": RESUME_MEAN_ATOL,
+           "adam_count": tA.opt.count, "params_finite": finite}
+    ok = (loaded_exact and same_batches and finite and diff <= rec["resume_param_atol"]
+          and mean_diff <= RESUME_MEAN_ATOL and tA.opt.count == tB2.opt.count == GRAPH_TRAINER_STEPS
+          and counts["epipolar_launches"] == expected)
+    emit({"phase": "graph_trainer", **rec, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the Trainer at steps_per_dispatch > 1 failed (see its line)")
+    return rec
+
+
+def dispatch_phase(smi: str, eager: dict) -> dict:
+    """Phase 10: K steps a dispatch as one replay of a captured CUDA graph,
+    at the main path's width (640×192, batch 4, bf16, random weights from
+    seed 0): TG at each K of DISPATCH_KS, DS with the live Mask R-CNN fused
+    (384×1280, score 0.05) and the fine-tune step at DISPATCH_K, each beside
+    its eager figures; the f32 check on the card; the Trainer's resume.
+    ``eager``: {configuration: its eager median and peak from phases 4, 8, 9}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+    from mdn_sfm_tpu_torch.masks.maskrcnn import MaskRCNNProvider
+
+    t_phase = time.perf_counter()
+    batches = []
+    for seed in range(4):
+        colors, K = synthetic_batch(BATCH, HEIGHT, WIDTH, seed=seed)
+        batches.append({"colors_u8": torch.from_numpy(colors).cuda(), "K": torch.from_numpy(K).cuda()})
+    runs = {}
+    for k in DISPATCH_KS:
+        runs[f"TG_K{k}"] = graph_run("TG", _options_config(), k, batches, smi, eager["TG"])
+        torch.cuda.empty_cache()
+    base = tempfile.mkdtemp(prefix="mdn_graph_")
+    try:
+        ds_cfg = _ds_config("DS", D2_THRESHOLDS[-1], os.path.join(base, "log"))
+        runs["DS_fused"] = graph_run("DS_fused_0.05", ds_cfg, DISPATCH_K, batches, smi, eager["DS"],
+                                     provider=MaskRCNNProvider(ds_cfg, "cuda"))
+        torch.cuda.empty_cache()
+        runs["fine_tune"] = graph_run("fine_tune", _options_config(fine_tune_flow_motion=True), DISPATCH_K,
+                                      batches, smi, eager["fine_tune"])
+        torch.cuda.empty_cache()
+        small = graph_f32_check()
+        trainer = graph_trainer_run(base, smi)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit({"phase": "graph_dispatch_summary",
+          "ms_per_step": {n: r["median_ms_per_step"] for n, r in runs.items()},
+          "eager_ms_per_step": {n: r["eager_median_step_ms"] for n, r in runs.items()},
+          "capture_s": {n: r["capture_s"] for n, r in runs.items()},
+          "cuda_vs_eager_and_cpu_f32": small, "phase_seconds": time.perf_counter() - t_phase,
+          "card": smi, "ok": small["ok"]})
+    if not small["ok"]:
+        raise AssertionError("the f32 dispatch on the card disagrees with eager steps or the CPU (see its line)")
+    return {"runs": runs, "trainer": trainer}
+
+
 def main() -> None:
     import torch
 
@@ -1611,6 +1971,7 @@ def main() -> None:
     finite = all(math.isfinite(x) for d in losses for x in d.values())
     changed = sum(not torch.equal(v, before[k]) for k, v in models.mobile.state_dict().items())
     med = statistics.median(step_s)
+    tg_peak = torch.cuda.max_memory_allocated() / 2**30
     emit({"phase": "train_step", "mode": "TG", "height": HEIGHT, "width": WIDTH, "batch": BATCH,
           "compute_dtype": "bfloat16", "steps": TRAIN_STEPS, "median_step_ms": 1e3 * med,
           "p90_step_ms": 1e3 * sorted(step_s)[int(0.9 * (TRAIN_STEPS - 1))],
@@ -1620,7 +1981,7 @@ def main() -> None:
           "mobile_params_changed": f"{changed}/{len(before)}",
           "epipolar_launches": launches, "expected_launches": TRAIN_STEPS,
           "epipolar_maps": nmaps, "expected_maps": 8 * TRAIN_STEPS,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": smi})
+          "peak_mem_gib": tg_peak, "card": smi})
     if not finite:
         raise AssertionError("non-finite loss in the main path")
     if changed == 0:
@@ -1667,6 +2028,19 @@ def main() -> None:
     opt9 = options_phase(smi)
     rows = opt9["rehearsal"]["record"]["phase2"]
 
+    # ---- 10. K steps a dispatch as one replay of a captured CUDA graph
+    del models, opt
+    torch.cuda.empty_cache()
+    eager = {"TG": {"median_step_ms": 1e3 * med, "peak_mem_gib": tg_peak},
+             "DS": ds["runs"][("DS", D2_THRESHOLDS[-1])], "fine_tune": opt9["runs"]["fine_tune"]}
+    graph10 = dispatch_phase(smi, eager)
+    graph_counts = {name: {c: r[c] for c in ("epipolar_launches", "epipolar_maps", "nms_launches",
+                                             "roi_align_launches")} for name, r in graph10["runs"].items()}
+    mask_entries = mask_kernel_entries(ds)
+    for entry in mask_entries:
+        # phase 10's fused DS dispatches: launches counted as captured launches × replays
+        entry["graph_dispatch_launches"] = graph_counts["DS_fused"][f"{entry['name']}_launches"]
+
     # ---- summary lines
     emit({"kernels": [{
         "name": "epipolar_abs_residual_maps",
@@ -1697,7 +2071,11 @@ def main() -> None:
                          for name, r in opt9["runs"].items()},
         "rehearsal_phase2": {tag: {"launches": r["epipolar_launches"], "maps": r["epipolar_maps"]}
                              for tag, r in rows.items()},
-    }] + mask_kernel_entries(ds)})
+        # phase 10: launches and maps in each configuration's 1 + DISPATCH_TIMED
+        # graph dispatches (captured launches × replays; none in the fine-tune step)
+        "graph_dispatch": {name: {"launches": c["epipolar_launches"], "maps": c["epipolar_maps"]}
+                           for name, c in graph_counts.items()},
+    }] + mask_entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
 

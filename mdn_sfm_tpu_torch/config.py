@@ -1,9 +1,9 @@
 """Configuration — the port's own copy of ``mdn_sfm_tpu.config``.
 
 Same dataclass field names and defaults, so one ``opt.json`` reads in both
-packages. The two fields whose behaviour this port does not implement yet
-(``steps_per_dispatch > 1``, ``num_data_shards > 1``) raise
-``NotImplementedError`` in :meth:`Config.validate`; they are never ignored.
+packages. The one field whose behaviour this port does not implement yet
+(``num_data_shards > 1``) raises ``NotImplementedError`` in
+:meth:`Config.validate`; it is never ignored.
 """
 
 from __future__ import annotations
@@ -171,13 +171,8 @@ class Config:
             raise ValueError(f"compute_dtype must be bfloat16 or float32, not {self.compute_dtype!r}")
         if self.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, not {self.accum_steps}")
-        if self.steps_per_dispatch > 1:
-            # several optimizer steps a dispatch: on the card a captured
-            # multi-step CUDA graph, not a scan
-            raise NotImplementedError(
-                f"steps_per_dispatch={self.steps_per_dispatch} is not implemented by the PyTorch port yet "
-                "(only the default 1)"
-            )
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, not {self.steps_per_dispatch}")
         if self.num_data_shards > 1:
             raise NotImplementedError(
                 "num_data_shards > 1 (data parallelism) is not implemented by the PyTorch port yet"

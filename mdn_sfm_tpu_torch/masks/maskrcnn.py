@@ -22,6 +22,7 @@ Top-k is a stable descending sort, so ties keep the lower index first, as
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -264,7 +265,10 @@ def decode_boxes(anchors: Tensor, deltas: Tensor, weights=(1.0, 1.0, 1.0, 1.0)) 
 
 def _bound(v, boxes: Tensor) -> Tensor:
     """A height or width (a number, or one per image) broadcastable against
-    ``boxes[..., 0]`` whose leading axis is the image."""
+    ``boxes[..., 0]`` whose leading axis is the image. A number is filled in
+    on the device: a copy from the host would stop a CUDA graph's capture."""
+    if isinstance(v, (int, float)):
+        return torch.full((), float(v), dtype=torch.float32, device=boxes.device)
     t = torch.as_tensor(v, dtype=torch.float32, device=boxes.device)
     return t.reshape(t.shape + (1,) * (boxes.ndim - 1 - t.ndim)) if t.ndim else t
 
@@ -556,7 +560,10 @@ def static_input_shape() -> tuple[int, int]:
     return 640, 2048
 
 
+@functools.lru_cache(maxsize=8)
 def _mean_bgr(device: torch.device) -> Tensor:
+    """The caffe mean on ``device``, copied there once (read-only): a copy
+    from the host inside a step would stop a CUDA graph's capture."""
     return torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32, device=device)
 
 

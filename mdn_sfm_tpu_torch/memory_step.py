@@ -2,13 +2,17 @@
 
     python -m mdn_sfm_tpu_torch.memory_step [--top 15] [--fine_tune_flow_motion] [--remat]
         [--accum_steps 2] [--bn_frozen_eval false] [--skip_nonfinite_updates]
+        [--steps_per_dispatch K]
 
 Runs the TG step at 640×192, batch 4, bf16 (random weights from a seed)
 through ``training.train_step``: a few warm-up steps, then one step under
 ``torch.cuda.memory``'s allocation history. Replays that history from the
 bytes allocated before the step, finds the peak, and sums the allocations
-live there by the port's innermost source lines that made them. Prints one
-JSON line. Needs a card.
+live there by the port's innermost source lines that made them. With
+``--steps_per_dispatch`` K > 1 the history covers the first K-step dispatch
+instead: its eager warm-up, the capture of the CUDA graph (whose private
+pool then holds what the K steps allocate) and one replay, which allocates
+nothing. Prints one JSON line. Needs a card.
 """
 
 from __future__ import annotations
@@ -82,11 +86,16 @@ def main() -> None:
     for _ in range(args.warmup):
         T.train_step(cfg, models, opt, batch, generator=gen)
     torch.cuda.synchronize()
+    k = args.steps_per_dispatch
 
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.memory._record_memory_history(max_entries=1_000_000, stacks="python")
-    T.train_step(cfg, models, opt, batch, generator=gen)
+    if k > 1:
+        stacked = {key: torch.stack([v] * k) for key, v in batch.items()}
+        T.make_multi_train_step(cfg, models, opt, k)(stacked, T.multi_step_draws(cfg, stacked, args.warmup))
+    else:
+        T.train_step(cfg, models, opt, batch, generator=gen)
     torch.cuda.synchronize()
     snap = torch.cuda.memory._snapshot()
     torch.cuda.memory._record_memory_history(enabled=None)
@@ -97,7 +106,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "memory": "train_step TG 640x192 bs4 bf16, one step after warm-up",
+        "memory": ("train_step TG 640x192 bs4 bf16, one step after warm-up" if k == 1 else
+                   f"the first {k}-step dispatch after warm-up: its warm-up, capture and one replay"),
+        "steps_per_dispatch": k,
         "step_options": step_options(args),
         "card": smi,
         "allocated_before_step_bytes": before,

@@ -49,7 +49,7 @@ def nms_reference(boxes: Tensor, scores: Tensor, iou_thresh: float, max_out: int
     alive = torch.ones(n_img, n, dtype=torch.bool, device=boxes.device)
     keep = torch.zeros(n_img, max_out, dtype=torch.int32, device=boxes.device)
     valid = torch.zeros(n_img, max_out, dtype=torch.bool, device=boxes.device)
-    neg_inf = torch.tensor(float("-inf"), device=boxes.device)
+    neg_inf = torch.full((), float("-inf"), device=boxes.device)
     for i in range(max_out):
         masked = torch.where(alive, scores, neg_inf)
         j = masked.argmax(1)

@@ -2,13 +2,17 @@
 
     python -m mdn_sfm_tpu_torch.profile_step [--steps 10] [--trace DIR] [--mode DS|DC]
         [--fine_tune_flow_motion] [--remat] [--accum_steps 2] [--bn_frozen_eval false]
-        [--skip_nonfinite_updates]
+        [--skip_nonfinite_updates] [--steps_per_dispatch K]
 
 Runs the TG step at 640×192, batch 4, bf16 (random weights from a seed)
 through ``training.train_step`` in windows of ``--steps`` steps each. With
 ``--mode DS`` or ``DC`` the step runs the live Mask R-CNN provider fused
 into it (random weights, ``d2_infer_scale`` 2: 384×1280,
-``--d2_score_thresh``). The step options take the train flags' names.
+``--d2_score_thresh``). The step options take the train flags' names. With
+``--steps_per_dispatch`` K > 1 the steps run as dispatches of K steps, each
+one replay of a CUDA graph captured over K steps
+(``training.make_multi_train_step``), and every window below is one
+dispatch: a trace holds one replayed dispatch.
 
 1. a window with no profiler, then ``--rounds`` times a device-only trace
    (``ProfilerActivity.CUDA``: no host ops recorded) followed by another
@@ -63,7 +67,9 @@ STEP_OPTIONS = ("fine_tune_flow_motion", "remat", "accum_steps", "bn_frozen_eval
 
 
 def add_step_option_args(ap: argparse.ArgumentParser) -> None:
-    """The train step's options as flags, with the train CLI's names."""
+    """The train step's options as flags, with the train CLI's names, and
+    ``--steps_per_dispatch``."""
+    ap.add_argument("--steps_per_dispatch", type=int, default=1)
     ap.add_argument("--fine_tune_flow_motion", action="store_true")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--skip_nonfinite_updates", action="store_true")
@@ -105,37 +111,49 @@ def main() -> None:
     gen = torch.Generator(device=device).manual_seed(1)
     colors, K = synthetic_batch(4, 192, 640, seed=0)
     batch = {"colors_u8": torch.from_numpy(colors).to(device), "K": torch.from_numpy(K).to(device)}
+    k = args.steps_per_dispatch
+    kstep = T.make_multi_train_step(cfg, models, opt, k, provider=provider) if k > 1 else None
+    stacked = {key: torch.stack([v] * k) for key, v in batch.items()}
+    done = 0  # steps taken: the next dispatch's draws start there
 
     def run(n: int) -> float:
-        """Wall ms per step of ``n`` steps ending in a sync."""
+        """Wall ms per step of ``n`` steps (``n`` dispatches of K steps with
+        ``--steps_per_dispatch``) ending in a sync."""
+        nonlocal done
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            T.train_step(cfg, models, opt, batch, generator=gen, provider=provider)
+            if kstep is None:
+                T.train_step(cfg, models, opt, batch, generator=gen, provider=provider)
+            else:
+                kstep(stacked, T.multi_step_draws(cfg, stacked, done))
+                done += k
         torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / n
+        return 1e3 * (time.perf_counter() - t0) / (n * k)
 
-    run(args.warmup)
-    plain_ms = [run(args.steps)]
+    run(args.warmup if kstep is None else 1)  # with K > 1: the capture and a first replay
+    window = args.steps if kstep is None else 1  # with K > 1 a window is one dispatch
+    steps = window * k
+    plain_ms = [run(window)]
     traces = []
     for _ in range(args.rounds):
         with profile(activities=[ProfilerActivity.CUDA]) as dev_prof:
-            dev_step_ms = run(args.steps)
+            dev_step_ms = run(window)
         traces.append((dev_step_ms, _device_kernels(dev_prof)))
-        plain_ms.append(run(args.steps))
+        plain_ms.append(run(window))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as host_prof:
-        host_step_ms = run(args.steps)
+        host_step_ms = run(window)
 
     device_trace = []
     for dev_step_ms, kernels in traces:
         if not kernels:
             raise RuntimeError("the device-only trace holds no kernels")
-        busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / args.steps
+        busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
         device_trace.append({
             "step_ms": dev_step_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1.0 - busy_ms / dev_step_ms,
-            "kernel_launches_per_step": len(kernels) / args.steps,
+            "kernel_launches_per_step": len(kernels) / steps,
         })
     by_name: dict[str, list[float]] = {}
     for e in traces[0][1]:
@@ -144,7 +162,7 @@ def main() -> None:
     stage_ms = dict.fromkeys(T.STAGES, 0.0)
     for e in host_prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU and e.name in T.STAGES:
-            stage_ms[e.name] += e.time_range.elapsed_us() / 1e3 / args.steps
+            stage_ms[e.name] += e.time_range.elapsed_us() / 1e3 / steps
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
         host_prof.export_chrome_trace(os.path.join(args.trace, "train_step_trace.json"))
@@ -156,11 +174,13 @@ def main() -> None:
         "step_options": step_options(args),
         "d2_score_thresh": args.d2_score_thresh if provider is not None else None,
         "card": smi,
-        "steps_per_window": args.steps,
+        "steps_per_dispatch": k,
+        "capture_s": kstep.capture_seconds if kstep is not None else None,
+        "steps_per_window": steps,
         "step_ms_no_profiler": plain_ms,
         "device_trace": device_trace,
         "top_kernels": [
-            {"name": n[:120], "calls_per_step": len(d) / args.steps, "ms_per_step": sum(d) / 1e3 / args.steps}
+            {"name": n[:120], "calls_per_step": len(d) / steps, "ms_per_step": sum(d) / 1e3 / steps}
             for n, d in top
         ],
         "host_trace": {"step_ms": host_step_ms, "host_stage_ms_per_step": stage_ms},

@@ -51,6 +51,9 @@ class Trainer:
         self.device = resolve_device(device)
         self.save_path = os.path.join(cfg.log_dir, cfg.v_save)
         if debug_nans:
+            if cfg.steps_per_dispatch > 1 and self.device.type == "cuda":
+                raise ValueError("debug_nans checks every backward op's output on the host, which a "
+                                 "captured CUDA graph (steps_per_dispatch > 1) cannot do: use steps_per_dispatch 1")
             # autograd's anomaly mode, as the reference runs it: every backward
             # op checks its output for NaN (slow; opt-in)
             torch.autograd.set_detect_anomaly(True)
@@ -215,6 +218,13 @@ class Trainer:
                                 provider=self.fused_provider)
 
         self.step_fn = step_fn
+        # steps_per_dispatch > 1: K steps a call, captured as one CUDA graph
+        # at the first dispatch on the card (training.make_multi_train_step)
+        self.kstep = (T.make_multi_train_step(cfg, self.models, self.opt, cfg.steps_per_dispatch,
+                                              provider=self.fused_provider)
+                      if cfg.steps_per_dispatch > 1 else None)
+        self.multi_fn = self.kstep
+        self.capture_seconds = None
 
     # ----------------------------------------------------------- running
 
@@ -346,7 +356,10 @@ class Trainer:
         # the shuffle follows the trainer's epoch, not the loader's own count
         self.train_loader.epoch = self.epoch
         skip, self._skip_batches = getattr(self, "_skip_batches", 0), 0
-        self._run_epoch_single(skip)
+        if self.cfg.steps_per_dispatch > 1:
+            self._run_epoch_multi(skip)
+        else:
+            self._run_epoch_single(skip)
         hit = getattr(self.train_loader.dataset, "hit_fraction", None)
         if hit is not None and hit < 1.0:
             print(f"decoded cache: {hit:.1%} of items cached")
@@ -388,6 +401,60 @@ class Trainer:
                 self.log(metrics, aux, log_image=early or late)
                 self.val()
 
+            self.step += 1
+            if self.step % cfg.save_frequency == 0:
+                self.save_model(self.idx_save, async_write=True)
+                self.idx_save += 1
+
+    def _run_epoch_multi(self, skip: int = 0):
+        """K = steps_per_dispatch optimizer steps a dispatch
+        (:attr:`multi_fn`; on the card one replay of a captured CUDA graph).
+        Scalars are logged once a dispatch (the K steps' means), images from
+        the last step's aux; a checkpoint is saved when the step counter
+        crosses a multiple of save_frequency. The epoch's tail batches, which
+        do not fill a dispatch, go through the single step, so an epoch takes
+        the items it takes at K = 1. A stop request halts at the next batch
+        boundary: batches gathered but not stepped are taken again on resume,
+        whose position follows the step counter."""
+        cfg = self.cfg
+        k = cfg.steps_per_dispatch
+        pend: list = []
+        dispatch_idx = 0
+        for arrays, idxs in self.train_loader.iter_batches(skip):
+            if self._stop_requested:
+                break
+            pend.append(([int(i) for i in idxs], self._device_batch(arrays, [self.sample_keys[int(i)] for i in idxs])))
+            if len(pend) < k:
+                continue
+            before = time.time()
+            for j, (idx, _) in enumerate(pend):
+                self.sample_history.append((self.step + j, idx))
+            batches = {key: torch.stack([b[key] for _, b in pend]) for key in pend[0][1]}
+            pend = []
+            metrics, aux = self.multi_fn(batches, T.multi_step_draws(cfg, batches, self.step))
+            if self.capture_seconds is None and self.kstep.capture_seconds is not None:
+                self.capture_seconds = self.kstep.capture_seconds
+                print(f"captured {k} train steps as one CUDA graph in {self.capture_seconds:.2f} s", flush=True)
+
+            if dispatch_idx % max(cfg.log_frequency // k, 1) == 0:
+                loss = float(metrics["loss"])
+                self.last_loss_read = time.perf_counter()
+                self.step_log.append((self.step, (time.time() - before) / k, loss))
+                self.log_time(dispatch_idx * k, self.step_log[-1][1], loss)
+                self.log(metrics, aux, log_image=True)
+                self.val()
+
+            self.step += k
+            dispatch_idx += 1
+            if self.step // cfg.save_frequency > (self.step - k) // cfg.save_frequency:
+                self.save_model(self.idx_save, async_write=True)
+                self.idx_save += 1
+
+        for idx, batch in pend:
+            if self._stop_requested:
+                break
+            self.sample_history.append((self.step, idx))
+            self.step_fn(batch, T.step_generator(cfg.seed, self.step, self.device))
             self.step += 1
             if self.step % cfg.save_frequency == 0:
                 self.save_model(self.idx_save, async_write=True)

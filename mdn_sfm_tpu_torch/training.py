@@ -321,8 +321,31 @@ def make_optimizer(cfg: Config, models: ModelBundle, steps_per_epoch: int) -> Ad
 
 def _autocast(cfg: Config, device: torch.device):
     if cfg.compute_dtype == "bfloat16":
-        return torch.autocast(device.type, dtype=torch.bfloat16)
+        # under CUDA graph capture the casts of the weights must be captured
+        # anew in every step: the cast cache would hand a replay the bf16
+        # copies cast once, before the optimizer moved the weights
+        capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+        return torch.autocast(device.type, dtype=torch.bfloat16, cache_enabled=not capturing)
     return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _native_cpu_convs(device: torch.device):
+    """On the CPU, PyTorch's own convolutions instead of oneDNN's within the
+    block. oneDNN's weight gradient of a 3×3 conv sums the spatial positions
+    less precisely: 2.8e-6 relative to float64 over 4×64×96 positions against
+    3.9e-7, and the DS step's gradient norm 2.3e-5 from float64 against 7.8e-8
+    (``tests/torch_grad_probe.py``; the JAX package's gradients lie 4.5e-7
+    from it)."""
+    if device.type != "cpu":
+        yield
+        return
+    was = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = was
 
 
 def _nhwc(x: Tensor) -> Tensor:
@@ -443,6 +466,32 @@ def step_generator(seed: int, step: int, device: str | torch.device) -> torch.Ge
     return torch.Generator(device=device).manual_seed(int.from_bytes(digest, "little") >> 1)
 
 
+def _micro_grads(cfg: Config, models: ModelBundle, opt: Adam, batch: dict, draws: dict | None, provider,
+                 n_micro: int) -> tuple[list[Tensor], list]:
+    """Forward and backward of each of ``n_micro`` microbatches in order:
+    the summed gradients and each microbatch's (losses, aux), detached."""
+    mb = batch["colors_u8"].shape[0] // n_micro
+    grads, parts = None, []
+    for a in range(n_micro):
+        rows = slice(a * mb, (a + 1) * mb)
+        part = {k: v[rows] for k, v in batch.items()} if n_micro > 1 else batch
+        part_draws = {k: v[rows] for k, v in draws.items()} if draws is not None and n_micro > 1 else draws
+        with record_function("augment"):
+            colors, inv_Ks, raw0 = augment_batch(cfg, part["colors_u8"], part["K"], draws=part_draws)
+        instance_mask = part.get("instance_mask")
+        if instance_mask is None and provider is not None:
+            with record_function("instance_masks"):
+                instance_mask = provider.union_fn(raw0 * 255.0)  # no graph: union_fn runs under no_grad
+        with record_function("forward_loss"):
+            loss, (losses, aux) = loss_from_batch(cfg, models, colors, inv_Ks, instance_mask)
+        with record_function("backward"):
+            g = torch.autograd.grad(loss, opt.params)
+        grads = list(g) if grads is None else [x + y for x, y in zip(grads, g)]
+        parts.append(({k: v.detach() for k, v in losses.items()},
+                      LossAux(*({k: v.detach() for k, v in d.items()} for d in aux))))
+    return grads, parts
+
+
 def train_step(
     cfg: Config,
     models: ModelBundle,
@@ -475,30 +524,13 @@ def train_step(
     n_micro = cfg.accum_steps
     if b % n_micro:
         raise ValueError(f"batch {b} must divide by accum_steps {n_micro}")
-    mb = b // n_micro
     if draws is None and not cfg.disable_augment:
         if generator is None:
             raise ValueError("train_step needs draws or a generator")
         with record_function("augment"):
             draws = draw_augment(b, h, w, generator)
-    grads, parts = None, []
-    for a in range(n_micro):
-        rows = slice(a * mb, (a + 1) * mb)
-        part = {k: v[rows] for k, v in batch.items()} if n_micro > 1 else batch
-        part_draws = {k: v[rows] for k, v in draws.items()} if draws is not None and n_micro > 1 else draws
-        with record_function("augment"):
-            colors, inv_Ks, raw0 = augment_batch(cfg, part["colors_u8"], part["K"], draws=part_draws)
-        instance_mask = part.get("instance_mask")
-        if instance_mask is None and provider is not None:
-            with record_function("instance_masks"):
-                instance_mask = provider.union_fn(raw0 * 255.0)  # no graph: union_fn runs under no_grad
-        with record_function("forward_loss"):
-            loss, (losses, aux) = loss_from_batch(cfg, models, colors, inv_Ks, instance_mask)
-        with record_function("backward"):
-            g = torch.autograd.grad(loss, opt.params)
-        grads = list(g) if grads is None else [x + y for x, y in zip(grads, g)]
-        parts.append(({k: v.detach() for k, v in losses.items()},
-                      LossAux(*({k: v.detach() for k, v in d.items()} for d in aux))))
+    with _native_cpu_convs(colors_u8.device):
+        grads, parts = _micro_grads(cfg, models, opt, batch, draws, provider, n_micro)
     with record_function("optimizer"):
         if n_micro == 1:
             metrics, aux = parts[0]
@@ -510,6 +542,48 @@ def train_step(
                             for field, d in zip(LossAux._fields, parts[0][1])))
         metrics["grad_norm"] = opt.step(grads)
     return metrics, aux
+
+
+def multi_step_draws(cfg: Config, batches: dict, step: int) -> dict[str, Tensor] | None:
+    """The augmentation draws of the K steps of a dispatch from step ``step``
+    on: step ``step + j`` draws from :func:`step_generator` (seed, step + j)
+    on the batches' device, as a single step does, stacked to (K, B, …).
+    None with ``disable_augment``."""
+    if cfg.disable_augment:
+        return None
+    colors_u8 = batches["colors_u8"]
+    k, b, _, h, w, _ = colors_u8.shape
+    per = [draw_augment(b, h, w, step_generator(cfg.seed, step + j, colors_u8.device)) for j in range(k)]
+    return {key: torch.stack([d[key] for d in per]) for key in per[0]}
+
+
+def k_train_steps(cfg: Config, models: ModelBundle, opt: Adam, batches: dict, draws: dict | None = None,
+                  provider=None) -> tuple[dict[str, Tensor], LossAux, dict[str, Tensor]]:
+    """:func:`train_step` on each of the K batches of ``batches`` (every
+    entry (K, B, …)) in order, step j with row j of ``draws``. Returns the
+    metrics' mean over the K steps, the last step's aux, and the metrics of
+    each step ({name: (K,)})."""
+    k = batches["colors_u8"].shape[0]
+    per, aux = [], None
+    for j in range(k):
+        step_draws = None if draws is None else {key: v[j] for key, v in draws.items()}
+        metrics, aux = train_step(cfg, models, opt, {key: v[j] for key, v in batches.items()},
+                                  draws=step_draws, provider=provider)
+        per.append(metrics)
+    steps = {key: torch.stack([m[key] for m in per]) for key in per[0]}
+    return {key: v.mean() for key, v in steps.items()}, aux, steps
+
+
+def make_multi_train_step(cfg: Config, models: ModelBundle, opt: Adam, k: int, provider=None):
+    """K optimizer steps a dispatch, the counterpart of the JAX package's
+    ``make_multi_train_step``: a callable on (K, B, …) batches and their
+    draws (:func:`multi_step_draws`) that returns the K steps' mean metrics
+    and the last step's :class:`LossAux`. On the card a dispatch is one
+    replay of a CUDA graph captured over K steps; on the CPU the K steps run
+    in turn (:class:`~.dispatch.KStepDispatch`)."""
+    from .dispatch import KStepDispatch
+
+    return KStepDispatch(cfg, models, opt, k, provider)
 
 
 @torch.no_grad()

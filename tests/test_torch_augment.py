@@ -16,6 +16,7 @@ from mdn_sfm_tpu.data.augment import augment_batch as j_augment
 from mdn_sfm_tpu.data.synthetic import synthetic_batch as j_synthetic
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.data import augment_batch, draw_augment, synthetic_batch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 B, H, W = 3, 64, 96
 # f32 resampling products on both sides (the JAX einsum at full f32 on the

@@ -21,6 +21,7 @@ from mdn_sfm_tpu_torch import checkpoints as C
 from mdn_sfm_tpu_torch import training as T
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.weights import adam_state_from_optax, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NETS = ("flownet", "posenet", "mobile_decoder")
 KW = dict(height=32, width=64, compute_dtype="float32")

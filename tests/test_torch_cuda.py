@@ -350,3 +350,155 @@ def test_skipped_step_leaves_the_state_as_it_was(card):
     assert (opt.count, int(opt.notfinite_count), int(opt.total_notfinite)) == (1, 1, 1)
     T.train_step(cfg, models, opt, _small_batch(card, seed=2), generator=T.step_generator(0, 2, card))
     assert opt.count == 2 and int(opt.notfinite_count) == 0
+
+
+# --------------------------- K steps a dispatch, as one captured CUDA graph
+
+
+def _dispatch_bundles(card, k=3, n=2, tmp_path=None, **kw):
+    """``n`` bundles of the same nets and Adam (one for a K-step graph
+    dispatch, the others for K eager steps), the K batches and their draws."""
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.masks.maskrcnn import MaskRCNNProvider
+
+    base = dict(height=64, width=96, batch_size=2, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                compute_dtype="float32")
+    if kw.get("mode") == "DS":
+        base.update(mask_provider="maskrcnn", d2_allow_random_weights=True, d2_score_thresh=0.05,
+                    log_dir=str(tmp_path))
+    cfg = Config(**{**base, **kw}).validate()
+    provider = MaskRCNNProvider(cfg, card) if cfg.mask_provider == "maskrcnn" else None
+    bundles = []
+    for _ in range(n):
+        models = T.build_models(cfg, torch.Generator().manual_seed(0), card)
+        bundles.append((models, T.make_optimizer(cfg, models, 10)))
+    steps = [_small_batch(card, seed=s) for s in range(k)]
+    batches = {key: torch.stack([b[key] for b in steps]) for key in steps[0]}
+    return cfg, provider, bundles, batches, T.multi_step_draws(cfg, batches, 0)
+
+
+@pytest.mark.parametrize("options", [{}, {"compute_dtype": "bfloat16"},
+                                     {"fine_tune_flow_motion": True, "remat": True},
+                                     {"bn_frozen_eval": False, "accum_steps": 2, "skip_nonfinite_updates": True},
+                                     {"mode": "DS"}],
+                         ids=["tg", "tg_bf16", "fine_tune_remat", "bn_train_accum_skip", "ds_fused"])
+def test_graph_dispatch_equals_eager_steps(card, tmp_path, options):
+    """A K = 3 dispatch, one replay of a graph captured over 3 steps, against
+    four runs of 3 eager steps from the same state on the same batches and
+    draws. Step 0's losses are equal bit for bit (no atomics run before its
+    backward). After it runs differ: the reflection pads' backward adds with
+    atomics (in bf16 at bf16's precision), a gradient at that noise flips the
+    sign of Adam's update, and the eager runs of one process may share
+    roundings that the graph does not. The rest lie within twice the largest
+    gap between the eager runs or a floor: in f32 1e-4 relative per Adam
+    update taken (the fine-tune step, whose flow and pose params flip too,
+    came 4.2e-5 to 8.7e-5 from eager runs at step 2 on an H100, while one
+    update moves its epip by 0.94 and the next by 0.48 of its value), in
+    bf16 0.1, where eager runs spread 1.6 % (consis at step 1). The params
+    move at most 2·lr a step apart, and the share past 2e-5 stays within
+    twice the eager runs' largest share, or 1e-4. With bf16 the graph casts
+    the weights anew at every step: a replayed stale cast would give step 1
+    the losses of the step-0 weights (consis 0.052 against 0.00032 after the
+    first update)."""
+    from mdn_sfm_tpu_torch import training as T
+
+    cfg, provider, bundles, batches, draws = _dispatch_bundles(card, n=5, tmp_path=tmp_path, **options)
+    (m1, o1), *eager_bundles = bundles
+    multi = T.make_multi_train_step(cfg, m1, o1, 3, provider=provider)
+    mean, aux = multi(batches, draws)
+    torch.cuda.synchronize()
+    assert multi.graph is not None and multi.capture_seconds > 0
+    graph = {k: v.clone() for k, v in multi.step_metrics.items()}
+    runs = []
+    for m2, o2 in eager_bundles:
+        per = [T.train_step(cfg, m2, o2, {k: v[j] for k, v in batches.items()},
+                            draws={k: v[j] for k, v in draws.items()}, provider=provider)[0] for j in range(3)]
+        runs.append({k: torch.stack([e[k] for e in per]) for k in per[0]})
+    updates = torch.arange(3, device=card).clamp(min=1)  # Adam updates behind each step's metrics
+    floor = 0.1 if cfg.compute_dtype == "bfloat16" else 1e-4 * updates
+    eager = runs[0]
+    for k in eager:
+        if k != "grad_norm":
+            assert torch.equal(graph[k][0], eager[k][0]), k
+        gap = max(float((x[k] - y[k]).abs().max()) for i, x in enumerate(runs) for y in runs[i + 1:])
+        bound = torch.maximum(torch.full_like(eager[k], 2 * gap), floor * eager[k].abs())
+        assert bool(((graph[k] - eager[k]).abs() <= bound).all()), (k, graph[k], eager[k], gap)
+        assert torch.equal(mean[k], graph[k].mean()), k
+
+    def params_apart(a, b):
+        d = torch.cat([(x - y).abs().flatten() for x, y in zip(a.params, b.params)])
+        return float(d.max()), float((d > 2e-5).float().mean())
+
+    opts = [o for _, o in eager_bundles]
+    assert o1.count == opts[0].count == 3
+    biggest, share = params_apart(o1, opts[0])
+    eager_share = max(params_apart(a, b)[1] for i, a in enumerate(opts) for b in opts[i + 1:])
+    assert biggest <= 2 * cfg.learning_rate * 3, biggest
+    if cfg.compute_dtype == "float32":
+        assert share <= max(2 * eager_share, 1e-4), (share, eager_share)
+    assert torch.isfinite(aux.min_mobiles[0]).all()
+
+
+def test_graph_dispatch_makes_no_host_sync(card):
+    """The draws, the copies into the static inputs and the replay: none
+    waits for the device."""
+    from mdn_sfm_tpu_torch import training as T
+
+    cfg, _, ((models, opt), _), batches, draws = _dispatch_bundles(card)
+    multi = T.make_multi_train_step(cfg, models, opt, 3)
+    multi(batches, draws)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")  # the first switch of the mode may sync itself
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        multi(batches, T.multi_step_draws(cfg, batches, 3))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert opt.count == 6
+
+
+@pytest.mark.parametrize("mode", ["TG", "DS"])
+def test_graph_launch_counts_are_honest(card, tmp_path, mode):
+    """The capture launches nothing, so it counts nothing; each replay
+    counts what it launches: a TG step 1 epipolar launch for 8 maps, a
+    fused DS step also 2 NMS and 2 ROIAlign launches."""
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops import nms as N
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    cfg, provider, ((models, opt), _), batches, draws = _dispatch_bundles(card, tmp_path=tmp_path, mode=mode)
+    multi = T.make_multi_train_step(cfg, models, opt, 3, provider=provider)
+    multi.capture(batches, draws)
+    per_step = [1, 8, 2, 2] if mode == "DS" else [1, 8, 0, 0]
+    assert list(multi.captured_launches.values()) == [3 * n for n in per_step]
+
+    def counts():
+        return [E.epipolar_abs_residual_maps.launches, E.epipolar_abs_residual_maps.maps, N.nms.launches,
+                RA.multilevel_roi_align.launches]
+
+    before = counts()
+    for _ in range(2):
+        multi(batches, draws)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [6 * n for n in per_step]
+    assert multi.replays == 2
+
+
+def test_failed_capture_raises(card):
+    """A step that reads a value on the host cannot be captured: the
+    dispatch raises rather than run eagerly."""
+    from mdn_sfm_tpu_torch import training as T
+
+    cfg, _, ((models, opt), _), batches, draws = _dispatch_bundles(card)
+
+    class Syncing:
+        def union_fn(self, images):
+            return torch.zeros_like(images[..., 0]) + float(images.sum())  # a host read
+
+    multi = T.make_multi_train_step(cfg, models, opt, 3, provider=Syncing())
+    with pytest.raises(RuntimeError):
+        multi(batches, draws)
+    assert multi.graph is None

@@ -26,6 +26,7 @@ from mdn_sfm_tpu_torch.data import kitti as tkitti
 from mdn_sfm_tpu_torch.data import loader as tloader
 from mdn_sfm_tpu_torch.data import splits as tsplits
 from mdn_sfm_tpu_torch.data import synthetic as tsynth
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

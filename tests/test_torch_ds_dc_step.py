@@ -30,6 +30,13 @@ B, H, W = 2, 64, 96
 STEPS = 2
 STEPS_PER_EPOCH = 10
 LOSS_RTOL = (1e-5, 3e-5)   # tests/test_torch_train_step.py
+# grad_norm, steps 0 and 1. At step 0 both packages' DS gradients agree with
+# float64 (tests/torch_grad_probe.py): against the port's float64 norm
+# 13.9374607, the port's f32 step is 7.8e-8 off and the JAX step's f32
+# gradients, summed in float64, 4.5e-7. The norm the JAX step itself reports,
+# its f32 sum of 3.2M squares inside the jitted step on the CPU, is
+# 13.9373055: 1.11e-5 off. The bound is about twice that; step 1 keeps 3e-5.
+GRAD_NORM_RTOL = (2.5e-5, 3e-5)
 PARAM_ATOL = 2e-5
 NOISE_FLOOR_SHARE = 1e-4
 LR = 1e-4
@@ -92,7 +99,8 @@ def test_metrics_match_jax(runs, step):
     assert set(tm[step]) == set(jm[step])
     for k in jm[step]:
         assert np.isfinite(tm[step][k]), k
-        np.testing.assert_allclose(tm[step][k], jm[step][k], rtol=LOSS_RTOL[step], err_msg=k)
+        rtol = (GRAD_NORM_RTOL if k == "grad_norm" else LOSS_RTOL)[step]
+        np.testing.assert_allclose(tm[step][k], jm[step][k], rtol=rtol, err_msg=k)
 
 
 def test_post_adam_params_match_jax(runs):

@@ -17,6 +17,7 @@ import torch
 from mdn_sfm_tpu.geometry import epipolar_residual, rot_from_axisangle
 from mdn_sfm_tpu.ops.pallas_epipolar import epipolar_abs_residual_pallas
 from mdn_sfm_tpu_torch.ops import epipolar as te
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # same formulas in f32 on both sides (the bound tests/test_pallas_ops.py uses

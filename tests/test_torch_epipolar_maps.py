@@ -19,6 +19,7 @@ from mdn_sfm_tpu.geometry import transformation_from_parameters
 from mdn_sfm_tpu.ops.pallas_epipolar import epipolar_abs_residual_pallas
 from mdn_sfm_tpu_torch import geometry as tg
 from mdn_sfm_tpu_torch.ops import epipolar as te
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CU = os.path.join(REPO, "mdn_sfm_tpu_torch", "csrc", "epipolar.cu")

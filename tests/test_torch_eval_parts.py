@@ -27,6 +27,7 @@ from mdn_sfm_tpu_torch.config import parse_eval_config
 from mdn_sfm_tpu_torch.data import augment as ta
 from mdn_sfm_tpu_torch.data import eval_datasets as td
 from mdn_sfm_tpu_torch.geometry import resize_linear
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 RESIZE_ATOL = 1e-5  # unit-scale inputs; the weights are JAX's, rounded as it rounds them
 

@@ -8,6 +8,7 @@ import torch
 
 from mdn_sfm_tpu import geometry as jg
 from mdn_sfm_tpu_torch import geometry as tg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 # f32 on both sides with the same formulas; differences are summation order
 # and transcendental rounding, a few ulp of values of order 1-100

@@ -12,6 +12,7 @@ from mdn_sfm_tpu.config import Config as JConfig, Mode as JMode
 from mdn_sfm_tpu.geometry import invert_intrinsics, transformation_from_parameters
 from mdn_sfm_tpu_torch import losses as tl
 from mdn_sfm_tpu_torch.config import Config, Mode
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 B, H, W = 2, 64, 96
 SCALES = (0, 1, 2, 3)

@@ -14,6 +14,7 @@ from mdn_sfm_tpu import checkpoints as ckpt
 from mdn_sfm_tpu import models as jm
 from mdn_sfm_tpu_torch import models as tm
 from mdn_sfm_tpu_torch.weights import state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 H, W, B = 64, 96, 2
 # f32 on both sides; a ResNet18 + decoder accumulates ~1e-5-scale drift from

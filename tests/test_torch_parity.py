@@ -6,6 +6,7 @@ round-trip test of checkpoints.export_pth's key mapping."""
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 torch = pytest.importorskip("torch")
 

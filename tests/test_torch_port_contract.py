@@ -15,6 +15,7 @@ import torch
 from mdn_sfm_tpu import config as jc
 from mdn_sfm_tpu_torch import config as tc
 from mdn_sfm_tpu_torch.utils import resolve_device
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the Trainer's slice: checkpoints, the KITTI data path and the host helpers
@@ -171,7 +172,7 @@ def test_eval_flags_match_jax():
     assert tc.parse_eval_cli("eval", [])[1] == "cuda"
 
 
-@pytest.mark.parametrize("field,value", [("num_data_shards", 2), ("steps_per_dispatch", 2)])
+@pytest.mark.parametrize("field,value", [("num_data_shards", 2)])
 def test_unimplemented_options_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tc.Config(**{field: value}).validate()
@@ -180,12 +181,12 @@ def test_unimplemented_options_raise(field, value):
 @pytest.mark.parametrize(
     "field,value",
     [("remat", True), ("accum_steps", 2), ("fine_tune_flow_motion", True), ("bn_frozen_eval", False),
-     ("skip_nonfinite_updates", True), ("use_pallas_epipolar", False)],
+     ("skip_nonfinite_updates", True), ("use_pallas_epipolar", False), ("steps_per_dispatch", 2)],
 )
 def test_step_options_validate_and_read_from_the_flags(field, value):
     """The step options are the port's too: each validates, and the train
     flags (``use_pallas_epipolar`` has none) set it as the JAX package's
-    flags do."""
+    flags do (``--steps_per_dispatch 2``: K steps a dispatch)."""
     assert getattr(tc.Config(**{field: value}).validate(), field) == value
     if field not in jc._TRAIN_FIELDS:
         return

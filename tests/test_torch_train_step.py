@@ -16,6 +16,7 @@ from mdn_sfm_tpu.data.synthetic import synthetic_batch
 from mdn_sfm_tpu_torch import training as TT
 from mdn_sfm_tpu_torch.config import Config, Mode
 from mdn_sfm_tpu_torch.weights import state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 B, H, W = 2, 64, 96
 STEPS = 2

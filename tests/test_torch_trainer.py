@@ -19,6 +19,7 @@ from mdn_sfm_tpu_torch import checkpoints as ckpt
 from mdn_sfm_tpu_torch import training as T
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.trainer import Trainer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 class QuietTrainer(Trainer):

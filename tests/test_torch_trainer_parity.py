@@ -30,6 +30,7 @@ from mdn_sfm_tpu_torch import training as T
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.trainer import Trainer
 from mdn_sfm_tpu_torch.weights import adam_state_from_optax, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 STEPS = 3
 # f32 on both sides, summed in another order: step 0 from equal params
