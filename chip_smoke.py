@@ -152,6 +152,10 @@ NOISE_MARGIN = 2.0
 F32_RTOL = 3e-5
 GRAPH_TRAINER_STEPS = 14  # the Trainer at K = 4: three dispatches and a tail of two single steps
 # the runtime calls that put work on the device, counted in a dispatch's trace
+# the port's device kernels a trace counts by name, each with the wrapper
+# counter it must match: an NMS call launches its sort, mask and scan once each
+TRACED_KERNELS = {"epipolar_abs_residual_maps": "epipolar_launches", "nms_sort": "nms_launches",
+                  "nms_mask": "nms_launches", "nms_scan": "nms_launches", "roi_align": "roi_align_launches"}
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                      "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
@@ -873,8 +877,8 @@ def mask_kernel_checks(calls: dict, what: str) -> dict:
             name = str(dtype).split(".")[1]
             ok = bool(torch.isfinite(got).all()) and err <= ROI_REL_TOL[name] * scale
             rec = {"boxes": list(boxes.shape[:2]), "out_size": out_size, "dtype": name,
-                   "levels": [list(f.shape[1:3]) for f in fs], "max_abs_err": err, "max_abs_ref": scale,
-                   "tol_rel": ROI_REL_TOL[name], "ok": ok}
+                   "levels": [list(f.shape[1:3]) for f in fs], "max_abs_err": err, "exact": err == 0.0,
+                   "max_abs_ref": scale, "tol_rel": ROI_REL_TOL[name], "ok": ok}
             emit({"phase": "kernel_check", "kernel": "roi_align", "inputs": what, **rec})
             if not ok:
                 raise AssertionError(f"ROIAlign kernel disagrees with its plain version ({what}, {rec})")
@@ -882,9 +886,31 @@ def mask_kernel_checks(calls: dict, what: str) -> dict:
     return out
 
 
+def nms_kernels_us(call, reps: int = 20) -> dict:
+    """Device time of each of an NMS call's three kernels, in µs a call
+    (torch.profiler over ``reps`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in TRACED_KERNELS if name.startswith("nms")}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in out:
+                if f"{name}_kernel" in e.name:
+                    out[name] += e.time_range.elapsed_us() / reps
+    return out
+
+
 def mask_kernel_times(calls: dict, smi: str, what: str) -> dict:
     """Kernel (warm, in a CUDA graph), plain version (event span of a call)
-    and bound of each captured call; a step's sums per kernel."""
+    and bound of each captured call, and each NMS device kernel's share; a
+    step's sums per kernel."""
     from mdn_sfm_tpu_torch.ops import nms as N
     from mdn_sfm_tpu_torch.ops import roi_align as RA
 
@@ -895,6 +921,7 @@ def mask_kernel_times(calls: dict, smi: str, what: str) -> dict:
         rows["nms"].append({
             "shape": list(boxes.shape[:2]), "max_out": max_out,
             "ms": device_ms(lambda: N.nms(boxes, scores, thresh, max_out), KERNEL_REPS, KERNEL_WARMUP),
+            "kernels_us": nms_kernels_us(lambda: N.nms(boxes, scores, thresh, max_out)),
             "plain_ms": call_ms(lambda: N.nms_reference(boxes, scores, thresh, max_out), 5, 1),
             "bound_ms": bound_ms, "bound_by": bound_by})
     for feats, boxes, out_size in calls["roi"]:
@@ -1158,7 +1185,7 @@ def ds_dc_phase(smi: str) -> dict:
         profile = ds_profile("DS", D2_THRESHOLDS[0], os.path.join(base, "log"), batches)
         pre = precomputed_run(base, smi)
         backend_checks = mask_kernel_checks(pre["calls"], "backend 640x2048 B=1")
-        backend_times = mask_kernel_times({"nms": pre["calls"]["nms"][:1], "roi": []}, smi, "backend 640x2048 B=1")
+        backend_times = mask_kernel_times(pre["calls"], smi, "backend 640x2048 B=1")
         small = ds_cuda_vs_cpu()
     finally:
         shutil.rmtree(base, ignore_errors=True)
@@ -1176,14 +1203,25 @@ def ds_dc_phase(smi: str) -> dict:
 def mask_kernel_entries(ds: dict) -> list[dict]:
     """The kernels line's entries of the two Mask R-CNN kernels: launches in
     phase 8's main run (DS, score 0.3), and a step's time, plain time and
-    bound (both stages of each) at the provider's shapes."""
+    bound (both stages of each) at the provider's shapes; the backend's
+    calls apart."""
     def worst(kind):
         return max(r["max_abs_err"] for c in ds["checks"] for r in c[kind])
 
+    def per_call(rows):
+        keys = ("shape", "boxes", "max_out", "out_size", "dtype", "ms", "kernels_us", "plain_ms", "bound_ms",
+                "bound_by", "share_of_bound")
+        return [{k: r[k] for k in keys if k in r} for r in rows]
+
     out = []
-    for name, kind, replaces in (("nms", "nms", "mdn_sfm_tpu/masks/maskrcnn.py:212"),
-                                 ("roi_align", "roi", "mdn_sfm_tpu/masks/maskrcnn.py:346")):
-        rows = ds["times"]["nms" if name == "nms" else "roi_align"]
+    for name, kind, replaces, design in (
+            ("nms", "nms", "mdn_sfm_tpu/masks/maskrcnn.py:212",
+             "redesigned: sort, suppression bitmask over (image, row tile, word tile), one-warp scan; "
+             "three device kernels a call (nms_sort, nms_mask, nms_scan), one launch counted"),
+            ("roi_align", "roi", "mdn_sfm_tpu/masks/maskrcnn.py:346",
+             "redesigned: a block per (box, bin rows), tap offsets and weights in shared memory, "
+             "16-byte channel vectors")):
+        rows = ds["times"][name]
         out.append({
             "name": name, "route": "cuda", "source": f"mdn_sfm_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": ds["launches"][name], "max_abs_err": worst(kind),
@@ -1193,7 +1231,9 @@ def mask_kernel_entries(ds: dict) -> list[dict]:
             "library_ms": None,
             "work": "one fused DS step's two stages at 384x1280, B=4: " + "; ".join(
                 f"{r.get('shape', r.get('boxes'))}->{r.get('max_out', r.get('out_size'))}" for r in rows),
-            "note": "replaces an XLA op of the JAX package, not a Pallas kernel; no single PyTorch call computes it"})
+            "provider_calls": per_call(rows), "backend_calls": per_call(ds["backend_times"][name]),
+            "note": "replaces an XLA op of the JAX package, not a Pallas kernel; no single PyTorch call computes it; "
+                    + design})
     return out
 
 
@@ -1620,9 +1660,7 @@ def device_trace(fn, steps: int) -> dict:
     host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
             and e.name in HOST_LAUNCH_CALLS]
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    named = {name: sum(key in e.name for e in kernels) for name, key in
-             (("epipolar", "epipolar_abs_residual_maps_kernel"), ("nms", "nms_kernel"),
-              ("roi_align", "roi_align_kernel"))}
+    named = {name: sum(f"{name}_kernel" in e.name for e in kernels) for name in TRACED_KERNELS}
     return {"wall_ms_per_step": wall_ms / steps, "device_busy_ms_per_step": busy_ms / steps,
             "device_idle_share": 1.0 - busy_ms / wall_ms, "host_launch_calls_per_step": len(host) / steps,
             "host_launch_calls": {n: sum(e.name == n for e in host) for n in HOST_LAUNCH_CALLS
@@ -1687,8 +1725,7 @@ def graph_run(name: str, cfg, k: int, batches: list, smi: str, eager: dict, prov
         per_step.update(epipolar_launches=0, epipolar_maps=0)
     n_steps = k * (1 + DISPATCH_TIMED)
     expected = {c: n * n_steps for c, n in per_step.items()}
-    in_trace = {"epipolar": per_step["epipolar_launches"] * k, "nms": per_step["nms_launches"] * k,
-                "roi_align": per_step["roi_align_launches"] * k}
+    in_trace = {name: per_step[counter] * k for name, counter in TRACED_KERNELS.items()}
     med = statistics.median(times)
     finite = all(math.isfinite(x) for x in losses)
     rec = {"config": name, "k": k, "capture_s": kstep.capture_seconds,

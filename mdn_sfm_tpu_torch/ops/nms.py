@@ -2,9 +2,10 @@
 ``csrc/nms.cu`` and its plain PyTorch version.
 
 The counterpart of ``mdn_sfm_tpu/masks/maskrcnn.py::nms_fixed`` (an XLA
-``fori_loop`` of argmax/suppress rounds), batched over images: one launch
-runs an NMS stage for the whole batch. The tensors' device chooses: CPU
-tensors take the plain version, CUDA tensors launch the kernel or raise.
+``fori_loop`` of argmax/suppress rounds), batched over images: one call
+runs an NMS stage for the whole batch (the kernel's sort, mask and scan).
+The tensors' device chooses: CPU tensors take the plain version, CUDA
+tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ Tensor = torch.Tensor
 _PTR = ctypes.c_void_p
 _I32 = ctypes.c_int32
 
-# the kernel's limit (csrc/nms.cu kMaxBoxes): one block's shared memory
+# the kernel's limit (csrc/nms.cu kMaxBoxes): the sort's keys in one block's
+# shared memory; the suppression mask is then 8 MiB an image
 MAX_BOXES = 8192
 
 
@@ -64,7 +66,7 @@ def nms_reference(boxes: Tensor, scores: Tensor, iou_thresh: float, max_out: int
 def _kernel_fn():
     fn = _build.load("nms").nms_fixed_f32
     if fn.argtypes is None:
-        fn.argtypes = [_PTR, _PTR, _I32, _I32, _I32, ctypes.c_float, _PTR, _PTR, _PTR]
+        fn.argtypes = [_PTR, _PTR, _I32, _I32, _I32, ctypes.c_float, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
         fn.restype = ctypes.c_int
     return fn
 
@@ -80,8 +82,9 @@ def nms(boxes: Tensor, scores: Tensor, iou_thresh: float, max_out: int) -> tuple
         (keep (N, max_out) int32, valid (N, max_out) bool), identical to
         ``nms_fixed`` per image.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel once
-    for the batch (counted in ``nms.launches``) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    three stages once for the batch (sort, mask, scan; one call counted in
+    ``nms.launches``) or raise.
     """
     if boxes.ndim != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"boxes must be (N, n, 4) and scores (N, n), got {tuple(boxes.shape)} "
@@ -98,13 +101,23 @@ def nms(boxes: Tensor, scores: Tensor, iou_thresh: float, max_out: int) -> tuple
     if not 1 <= n <= MAX_BOXES:
         raise ValueError(f"the NMS kernel takes 1 to {MAX_BOXES} boxes an image, got {n}")
     boxes, scores = boxes.contiguous(), scores.contiguous()
-    keep = torch.empty(n_img, max_out, dtype=torch.int32, device=boxes.device)
-    valid = torch.empty(n_img, max_out, dtype=torch.bool, device=boxes.device)
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one 16-byte load
+        boxes = boxes.clone()
+    dev = boxes.device
+    keep = torch.empty(n_img, max_out, dtype=torch.int32, device=dev)
+    valid = torch.empty(n_img, max_out, dtype=torch.bool, device=dev)
     if n_img and max_out:
-        with torch.cuda.device(boxes.device):
+        # scratch of the three launches: each position's box index, the
+        # sorted boxes, the count of scores above -inf, the suppression mask
+        order = torch.empty(n_img, n, dtype=torch.int32, device=dev)
+        sboxes = torch.empty(n_img, n, 4, dtype=torch.float32, device=dev)
+        limits = torch.empty(n_img, dtype=torch.int32, device=dev)
+        mask = torch.empty(n_img, n, (n + 31) // 32, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = _kernel_fn()(boxes.data_ptr(), scores.data_ptr(), n_img, n, max_out, float(iou_thresh),
-                               keep.data_ptr(), valid.data_ptr(), stream)
+                               keep.data_ptr(), valid.data_ptr(), order.data_ptr(), sboxes.data_ptr(),
+                               limits.data_ptr(), mask.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"NMS kernel launch failed: CUDA error {err}")
         nms.launches += 1

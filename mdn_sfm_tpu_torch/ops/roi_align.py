@@ -27,6 +27,9 @@ _PTR = ctypes.c_void_p
 _I32 = ctypes.c_int32
 
 LEVEL_STRIDES = (4.0, 8.0, 16.0, 32.0)
+# the kernel's limit (csrc/roi_align.cu kMaxSamples): sample rows a box, the
+# taps of which its block keeps in shared memory
+MAX_SAMPLES = 128
 # the plain version's working set: sample taps per chunk of boxes
 _CHUNK_ELEMENTS = 1 << 23
 
@@ -144,7 +147,9 @@ def multilevel_roi_align(feats: Sequence[Tensor], boxes: Tensor, out_size: int, 
         (N, R, out_size, out_size, C) in the features' type.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel once
-    (counted in ``multilevel_roi_align.launches``) or raise.
+    (counted in ``multilevel_roi_align.launches``) or raise. The kernel
+    takes 16-byte vectors of channels where C and the levels' alignment
+    allow, and single channels otherwise.
     """
     feats = list(feats[:4])
     if len(feats) != 4 or boxes.ndim != 3 or boxes.shape[-1] != 4:
@@ -165,6 +170,14 @@ def multilevel_roi_align(feats: Sequence[Tensor], boxes: Tensor, out_size: int, 
     if dtype not in (torch.float32, torch.bfloat16) or boxes.dtype != torch.float32:
         raise ValueError(f"the ROIAlign kernel takes float32 or bfloat16 features and float32 boxes, "
                          f"got {dtype} and {boxes.dtype}")
+    if sampling < 1 or out_size * sampling > MAX_SAMPLES:
+        raise ValueError(f"the ROIAlign kernel takes 1 to {MAX_SAMPLES} samples a side, "
+                         f"got out_size {out_size} × sampling {sampling}")
+    # the kernel indexes in int32 within an image's level and a box's output
+    sizes = [f[0].numel() for f in feats] + [out_size * out_size * c]
+    if max(sizes) >= 2**31 or n_img * n_box >= 2**31:
+        raise ValueError(f"the ROIAlign kernel takes an image's level and a box's output under 2^31 elements "
+                         f"and under 2^31 boxes, got {max(sizes)} and {n_img * n_box}")
     feats = [f.contiguous() for f in feats]
     boxes = boxes.contiguous()
     out = torch.empty(n_img, n_box, out_size, out_size, c, dtype=dtype, device=boxes.device)

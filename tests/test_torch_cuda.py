@@ -191,24 +191,176 @@ def test_nms_kernel_equals_plain(card, n_img, n, max_out, thresh):
         N.nms(torch.zeros(1, N.MAX_BOXES + 1, 4, device=card), torch.zeros(1, N.MAX_BOXES + 1, device=card), 0.5, 2)
 
 
+def _nms_adversarial(kind, n_img, n, seed, device):
+    """Boxes and scores that test the kernel's sort, count and scan: NaN
+    scores and corners, -inf, -0.0 ties, duplicates, a box without area."""
+    boxes, scores = _nms_inputs(n_img, n, seed, "cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    pick = int(torch.randint(n, (1,), generator=g))
+    if kind == "nan_score":
+        scores[0, pick] = float("nan")
+    elif kind == "nan_corners_top":
+        boxes[0, 2, 1] = float("nan")
+        scores[0, 2] = 100.0
+    elif kind == "nan_corners":
+        boxes[:, pick, 2] = float("nan")
+    elif kind == "all_neg_inf":
+        scores[:] = float("-inf")
+    elif kind == "neg_zero":
+        scores[:, ::3] = -0.0
+    elif kind == "duplicates":
+        boxes[:, n // 2:] = boxes[:, : n - n // 2]
+        scores[:, n // 2:] = scores[:, : n - n // 2]
+    return boxes.to(device), scores.to(device)
+
+
+@pytest.mark.parametrize("kind", ["nan_score", "nan_corners_top", "nan_corners", "all_neg_inf", "neg_zero",
+                                  "duplicates"])
+@pytest.mark.parametrize("n_img,n,max_out,thresh", [(2, 300, 100, 0.5), (4, 1280, 256, 0.7), (1, 8192, 1000, 0.7),
+                                                    (2, 31, 40, 0.5), (2, 33, 40, 0.5)])
+def test_nms_kernel_adversarial_equals_plain(card, kind, n_img, n, max_out, thresh):
+    """keep and valid identical to the plain version on inputs that end the
+    run early, suppress everything, tie by index, or repeat boxes; max_out
+    past n included."""
+    from mdn_sfm_tpu_torch.ops import nms as N
+
+    boxes, scores = _nms_adversarial(kind, n_img, n, seed=n + max_out, device=card)
+    keep, valid = N.nms(boxes, scores, thresh, max_out)
+    want_k, want_v = N.nms_reference(boxes, scores, thresh, max_out)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, want_k) and torch.equal(valid, want_v)
+    if kind in ("nan_score", "all_neg_inf"):
+        assert not valid[0].any()
+
+
+def _roi_inputs(card, dtype, n_box, channels, seed):
+    """P2..P5 of a 384×1280 input and boxes over all four levels, past the
+    image's edges and of zero size."""
+    g = torch.Generator().manual_seed(seed)
+    hw = ((96, 320), (48, 160), (24, 80), (12, 40))
+    feats = [torch.randn(4, h, w, channels, generator=g).to(card, dtype) for h, w in hw]
+    xy = torch.rand(4, n_box, 2, generator=g) * torch.tensor([1400.0, 460.0]) - torch.tensor([60.0, 40.0])
+    boxes = torch.cat([xy, xy + torch.exp(torch.rand(4, n_box, 2, generator=g) * 6.5)], -1)
+    boxes[0, :6] = torch.tensor([[0.0, 0.0, 40.0, 40.0],         # P2
+                                 [5.0, 5.0, 229.0, 229.0],       # P4
+                                 [0.0, 0.0, 150.0, 150.0],       # P3
+                                 [-50.0, -30.0, 1330.0, 420.0],  # P5, past every edge
+                                 [7.0, 9.0, 7.0, 9.0],           # zero size
+                                 [1270.0, 380.0, 1500.0, 500.0]])  # past the far edges
+    return feats, boxes.to(card)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_box,out_size", [(256, 7), (32, 14)])
-def test_roi_align_kernel_equals_plain(card, dtype, n_box, out_size):
+@pytest.mark.parametrize("n_box,out_size,channels", [(256, 7, 256), (32, 14, 256), (64, 7, 100), (16, 14, 100),
+                                                     (64, 7, 3), (16, 14, 3)])
+def test_roi_align_kernel_equals_plain(card, dtype, n_box, out_size, channels):
+    """Exactly the plain version's output (the kernel rounds op by op as it
+    does): the 16-byte vector path at C = 256 and the scalar path at C = 100
+    and 3, each level, clipped taps and a zero-size box."""
     from mdn_sfm_tpu_torch.ops import roi_align as RA
 
-    g = torch.Generator().manual_seed(n_box)
-    feats = [torch.randn(4, h, w, 256, generator=g).to(card, dtype) for h, w in ((96, 320), (48, 160), (24, 80), (12, 40))]
-    xy = torch.rand(4, n_box, 2, generator=g) * torch.tensor([1280.0, 384.0])
-    boxes = torch.cat([xy, xy + torch.exp(torch.rand(4, n_box, 2, generator=g) * 6)], -1)
-    boxes[0, :3] = torch.tensor([[0.0, 0.0, 224.0, 224.0], [5.0, 5.0, 117.0, 117.0], [0.0, 0.0, 0.0, 0.0]])
-    boxes = boxes.to(card)
+    feats, boxes = _roi_inputs(card, dtype, n_box, channels, seed=n_box + channels)
+    assert set(RA.assign_fpn_level(boxes).flatten().tolist()) == {2, 3, 4, 5}
     n0 = RA.multilevel_roi_align.launches
     got = RA.multilevel_roi_align(feats, boxes, out_size)
     want = RA.roi_align_reference(feats, boxes, out_size)
     torch.cuda.synchronize()
     assert RA.multilevel_roi_align.launches == n0 + 1 and got.dtype == dtype
-    tol = (1e-6 if dtype == torch.float32 else 2.0**-8) * float(want.float().abs().max())
-    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(got, want)
+
+
+def test_roi_align_kernel_unaligned_level_takes_scalar_path(card):
+    """A level that starts 4 bytes off a 16-byte boundary: the same kernel
+    reads it a channel at a time, exactly."""
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    feats, boxes = _roi_inputs(card, torch.float32, 64, 256, seed=5)
+    shifted = torch.empty(feats[1].numel() + 1, device=card)[1:].view(feats[1].shape)
+    shifted.copy_(feats[1])
+    feats[1] = shifted
+    assert shifted.data_ptr() % 16 == 4
+    got = RA.multilevel_roi_align(feats, boxes, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, RA.roi_align_reference(feats, boxes, 7))
+
+
+def test_nms_kernel_takes_more_images_than_a_short_grid_axis(card):
+    """More images than a grid's y or z axis holds (65535): the three NMS
+    kernels put the batch on x, and the result equals the plain version."""
+    from mdn_sfm_tpu_torch.ops import nms as N
+
+    n_img = 70000
+    g = torch.Generator().manual_seed(5)
+    xy = torch.rand(n_img, 3, 2, generator=g) * 20
+    boxes = torch.cat([xy, xy + 1 + torch.rand(n_img, 3, 2, generator=g) * 10], -1).to(card)
+    scores = torch.randn(n_img, 3, generator=g).to(card)
+    keep, valid = N.nms(boxes, scores, 0.5, 2)
+    ref_keep, ref_valid = N.nms_reference(boxes, scores, 0.5, 2)
+    assert torch.equal(keep, ref_keep) and torch.equal(valid, ref_valid)
+
+
+def test_roi_align_kernel_levels_past_2_31_elements(card):
+    """A level of three images, 2^30 bf16 elements each: the last image's
+    base lies past 2^31 elements (the kernel adds it in 64 bits), and the
+    kernel equals the plain version on boxes in every image."""
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    g = torch.Generator(device=card).manual_seed(6)
+    feats = [torch.randn(3, h, h, 256, generator=g, device=card, dtype=torch.bfloat16)
+             for h in (2048, 16, 8, 4)]
+    assert 2 * feats[0][0].numel() >= 2**31  # the third image's base
+    xy = torch.rand(3, 64, 2, generator=g, device=card) * 8000
+    boxes = torch.cat([xy, xy + 4 + torch.rand(3, 64, 2, generator=g, device=card) * 100], -1)  # P2
+    boxes[:, -4:] = torch.tensor([[0.0, 0.0, 300.0, 300.0], [10.0, 10.0, 600.0, 500.0],
+                                  [0.0, 0.0, 8192.0, 8192.0], [8100.0, 8100.0, 8192.0, 8192.0]], device=card)
+    got = RA.multilevel_roi_align(feats, boxes, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, RA.roi_align_reference(feats, boxes, 7))
+
+
+def test_roi_align_kernel_refuses_what_it_cannot_index(card):
+    """A CUDA tensor the ROIAlign kernel does not take raises rather than
+    falling back: more samples a side than its shared tables hold, or none."""
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    feats, boxes = _roi_inputs(card, torch.float32, 8, 8, seed=0)
+    with pytest.raises(ValueError, match="samples a side"):
+        RA.multilevel_roi_align(feats, boxes, RA.MAX_SAMPLES // 2 + 1)
+    with pytest.raises(ValueError, match="samples a side"):
+        RA.multilevel_roi_align(feats, boxes, 7, sampling=0)
+
+
+def test_mask_kernels_capture_in_a_graph(card):
+    """NMS (its three device kernels and their scratch) and ROIAlign captured
+    in one CUDA graph, replayed twice on new inputs copied into the static
+    ones, equal their eager calls; the counters count the capture's calls."""
+    from mdn_sfm_tpu_torch.ops import nms as N
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    boxes, scores = _nms_inputs(4, 1280, seed=3, device=card)
+    feats, rboxes = _roi_inputs(card, torch.bfloat16, 256, 256, seed=3)
+    N.nms(boxes, scores, 0.7, 256)  # warm: the first call configures the sort's shared memory
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        RA.multilevel_roi_align(feats, rboxes, 7)
+        with torch.cuda.graph(graph):
+            keep, valid = N.nms(boxes, scores, 0.7, 256)
+            pooled = RA.multilevel_roi_align(feats, rboxes, 7)
+    torch.cuda.current_stream().wait_stream(side)
+    for seed in (11, 12):
+        b2, s2 = _nms_inputs(4, 1280, seed=seed, device=card)
+        f2, r2 = _roi_inputs(card, torch.bfloat16, 256, 256, seed=seed)
+        boxes.copy_(b2), scores.copy_(s2), rboxes.copy_(r2)
+        for f, g in zip(feats, f2):
+            f.copy_(g)
+        graph.replay()
+        want_k, want_v = N.nms(b2, s2, 0.7, 256)
+        want_p = RA.multilevel_roi_align(f2, r2, 7)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, want_k) and torch.equal(valid, want_v) and torch.equal(pooled, want_p)
+        assert valid.any()
 
 
 def test_fused_ds_step_launches_each_kernel(card, tmp_path):
