@@ -29,7 +29,11 @@ and K steps a dispatch as one replay of a CUDA graph captured over K steps
 beside its eager figures and with each kernel's launches counted inside the
 graph; a small f32 dispatch against eager steps on the card and against the
 CPU, with no host sync; the Trainer at steps_per_dispatch = 4 stopped and
-resumed).
+resumed); and data parallelism in a process of its own, one rank of an NCCL
+group (the f32 step through the group, eager and as a K = 4 graph, against
+the step without one; the main path through the group, eager and at K = 4
+with each step's all-reduce inside the graph; the Trainer through it,
+stopped and resumed).
 
 Prints one JSON object per phase, the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -151,6 +155,16 @@ EAGER_RUNS = 4
 NOISE_MARGIN = 2.0
 F32_RTOL = 3e-5
 GRAPH_TRAINER_STEPS = 14  # the Trainer at K = 4: three dispatches and a tail of two single steps
+# Phase 11, data parallelism: the step through a process group of one rank
+# (NCCL), in a process of its own; its f32 check holds the group's steps to
+# phase 10's rule against steps with no group
+DP_STEPS = 20           # timed eager group steps at the main path's width (≥ 20)
+DP_TRAINER_STEPS = 8    # the Trainer through the group at 64×96: an epoch of this many steps
+DP_STOP_AFTER = 3       # its run B stops after this many steps; B2 resumes it
+DP_WORKER_TIMEOUT_S = 180
+# several ranks against one process on the global batch, step 0: the bound
+# of tests/test_torch_train_step.py (f32, summed in another order)
+DP_STEP0_RTOL = 1e-5
 # the runtime calls that put work on the device, counted in a dispatch's trace
 # the port's device kernels a trace counts by name, each with the wrapper
 # counter it must match: an NMS call launches its sort, mask and scan once each
@@ -1240,8 +1254,8 @@ def mask_kernel_entries(ds: dict) -> list[dict]:
 def _options_config(**kw):
     from mdn_sfm_tpu_torch.config import Config, Mode
 
-    return Config(height=HEIGHT, width=WIDTH, batch_size=BATCH, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
-                  compute_dtype="bfloat16", **kw).validate()
+    return Config(**{**dict(height=HEIGHT, width=WIDTH, batch_size=BATCH, mode=Mode.TG, threshold=9.22,
+                            w_d2_sim=0.0, compute_dtype="bfloat16"), **kw}).validate()
 
 
 def _snapshot(models) -> dict:
@@ -1661,14 +1675,18 @@ def device_trace(fn, steps: int) -> dict:
             and e.name in HOST_LAUNCH_CALLS]
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     named = {name: sum(f"{name}_kernel" in e.name for e in kernels) for name in TRACED_KERNELS}
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
     return {"wall_ms_per_step": wall_ms / steps, "device_busy_ms_per_step": busy_ms / steps,
             "device_idle_share": 1.0 - busy_ms / wall_ms, "host_launch_calls_per_step": len(host) / steps,
             "host_launch_calls": {n: sum(e.name == n for e in host) for n in HOST_LAUNCH_CALLS
                                   if any(e.name == n for e in host)},
-            "device_kernels_per_step": len(kernels) / steps, "port_kernels": named}
+            "device_kernels_per_step": len(kernels) / steps, "port_kernels": named,
+            "nccl_kernels_per_step": len(nccl) / steps,
+            "nccl_device_ms_per_step": sum(e.time_range.end - e.time_range.start for e in nccl) / 1e3 / steps,
+            "nccl_kernel_names": sorted({e.name for e in nccl})}
 
 
-def graph_run(name: str, cfg, k: int, batches: list, smi: str, eager: dict, provider=None) -> dict:
+def graph_run(name: str, cfg, k: int, batches: list, smi: str, eager: dict, provider=None, group=None) -> dict:
     """One configuration at K steps a dispatch: an eager trace of
     EAGER_TRACE_STEPS steps, then the capture (timed), one warm dispatch and
     DISPATCH_TIMED timed ones (host clock around each, draws included, ending
@@ -1676,7 +1694,8 @@ def graph_run(name: str, cfg, k: int, batches: list, smi: str, eager: dict, prov
     launches in those dispatches (counts set to 0 after the capture), and a
     trace of one dispatch, whose kernels must hold each port kernel's
     launches of its K steps. ``eager``: the same configuration's eager
-    median and peak from its earlier phase."""
+    median and peak from its earlier phase. With a process ``group`` every
+    step, eager or captured, takes its all-reduce."""
     import torch
 
     from mdn_sfm_tpu_torch import training as T
@@ -1690,7 +1709,7 @@ def graph_run(name: str, cfg, k: int, batches: list, smi: str, eager: dict, prov
     def eager_steps():
         for _ in range(EAGER_TRACE_STEPS):
             T.train_step(cfg, models, opt, one, generator=T.step_generator(cfg.seed, step[0], "cuda"),
-                         provider=provider)
+                         provider=provider, group=group)
             step[0] += 1
 
     eager_steps()  # warm
@@ -1698,11 +1717,11 @@ def graph_run(name: str, cfg, k: int, batches: list, smi: str, eager: dict, prov
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kstep = T.make_multi_train_step(cfg, models, opt, k, provider=provider)
-    kstep.capture(stacked, T.multi_step_draws(cfg, stacked, step[0]))
+    kstep = T.make_multi_train_step(cfg, models, opt, k, provider=provider, group=group)
+    kstep.capture(stacked, T.multi_step_draws(cfg, stacked, step[0], group))
 
     def dispatch():
-        m, _ = kstep(stacked, T.multi_step_draws(cfg, stacked, step[0]))
+        m, _ = kstep(stacked, T.multi_step_draws(cfg, stacked, step[0], group))
         step[0] += k
         return m
 
@@ -1754,6 +1773,33 @@ def _gaps(runs: list) -> tuple[dict, float]:
     return metric, param
 
 
+def _against_eager(got: tuple, runs: list, lr: float, k: int) -> dict:
+    """``got`` = ({metric: (K,)}, params) of K steps against ``runs``, the
+    same K eager steps from the same state and draws run EAGER_RUNS times:
+    step 0's losses bit for bit; every metric within NOISE_MARGIN times the
+    runs' largest gap or F32_RTOL relative; the params within NOISE_MARGIN
+    times the runs' largest gap or phase 5's rule (2·lr a step, few past
+    2e-5)."""
+    import torch
+
+    noise, pnoise = _gaps(runs)
+    step0_equal = all(torch.equal(got[0][key][0], r[0][key][0]) for r in runs for key in got[0] if key != "grad_norm")
+    vs_eager = {key: float((got[0][key] - runs[0][0][key]).abs().max()) for key in got[0]}
+    within_noise = {key: vs_eager[key] <= NOISE_MARGIN * noise[key] for key in vs_eager}
+    within_rtol = {key: bool(((got[0][key] - runs[0][0][key]).abs() <= F32_RTOL * runs[0][0][key].abs()).all())
+                   for key in vs_eager}
+    pdiff_all = torch.cat([(x - y).abs().flatten() for x, y in zip(got[1], runs[0][1])])
+    pdiff = float(pdiff_all.max())
+    p_rule = pdiff <= 2 * lr * k and float((pdiff_all > 2e-5).float().mean()) <= 1e-4
+    within = (all(within_noise[key] or within_rtol[key] for key in vs_eager)
+              and (pdiff <= NOISE_MARGIN * pnoise or p_rule))
+    return {"step0_losses_bitwise_equal": step0_equal, "vs_eager_max_abs": vs_eager, "eager_vs_eager_max_abs": noise,
+            "vs_eager_param_max_abs": pdiff, "eager_vs_eager_param_max_abs": pnoise, "eager_runs": len(runs),
+            "noise_margin": NOISE_MARGIN, "within_eager_noise": within_noise, "within_f32_rtol": within_rtol,
+            "f32_rtol": F32_RTOL, "params_within_phase5_rule": p_rule, "equals_eager": within,
+            "ok": step0_equal and within}
+
+
 def graph_f32_check() -> dict:
     """A K = DISPATCH_K dispatch at the CPU tests' size (64×96, batch 2, f32,
     augmentation on) against K eager steps on the card from the same state
@@ -1796,17 +1842,7 @@ def graph_f32_check() -> dict:
     cpu_k(host, {key: v.cpu() for key, v in draws.items()})
     cpu = ({key: v.clone() for key, v in cpu_k.step_metrics.items()}, [p.detach() for p in cpu_opt.params])
 
-    noise, pnoise = _gaps(runs)
-    step0_equal = all(torch.equal(graph[0][key][0], r[0][key][0]) for r in runs for key in graph[0] if key != "grad_norm")
-    vs_eager = {key: float((graph[0][key] - runs[0][0][key]).abs().max()) for key in graph[0]}
-    within_noise = {key: vs_eager[key] <= NOISE_MARGIN * noise[key] for key in vs_eager}
-    within_rtol = {key: bool(((graph[0][key] - runs[0][0][key]).abs() <= F32_RTOL * runs[0][0][key].abs()).all())
-                   for key in vs_eager}
-    pdiff_all = torch.cat([(x - y).abs().flatten() for x, y in zip(graph[1], runs[0][1])])
-    pdiff = float(pdiff_all.max())
-    p_rule = pdiff <= 2 * cfg.learning_rate * k and float((pdiff_all > 2e-5).float().mean()) <= 1e-4
-    within = (all(within_noise[key] or within_rtol[key] for key in vs_eager)
-              and (pdiff <= NOISE_MARGIN * pnoise or p_rule))
+    vs = _against_eager(graph, runs, cfg.learning_rate, k)
     rtols = [1e-5] + [3e-5] * (k - 1)  # phase 5: step 0 from equal params, later steps after Adam's updates
     rel = [max(abs(float(graph[0][key][j]) - float(cpu[0][key][j])) / max(abs(float(cpu[0][key][j])), 1e-12)
                for key in cpu[0]) for j in range(k)]
@@ -1823,13 +1859,8 @@ def graph_f32_check() -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    ok = step0_equal and within and cpu_ok and no_sync and opt.count == 2 * k
-    return {"k": k, "shape": [2, 64, 96], "step0_losses_bitwise_equal": step0_equal,
-            "graph_vs_eager_max_abs": vs_eager, "eager_vs_eager_max_abs": noise,
-            "graph_vs_eager_param_max_abs": pdiff, "eager_vs_eager_param_max_abs": pnoise,
-            "eager_runs": EAGER_RUNS, "noise_margin": NOISE_MARGIN, "within_eager_noise": within_noise,
-            "within_f32_rtol": within_rtol, "f32_rtol": F32_RTOL, "params_within_phase5_rule": p_rule,
-            "graph_equals_eager": within,
+    ok = vs["ok"] and cpu_ok and no_sync and opt.count == 2 * k
+    return {"k": k, "shape": [2, 64, 96], "graph_vs_eager": vs,
             "graph_vs_cpu_metric_rel_err": rel, "tol_rel": rtols,
             "graph_vs_cpu_param_max_abs": float(cdiff.max()),
             "graph_vs_cpu_param_share_over_2e-5": float((cdiff > 2e-5).float().mean()), "cpu_ok": cpu_ok,
@@ -1947,6 +1978,334 @@ def dispatch_phase(smi: str, eager: dict) -> dict:
     if not small["ok"]:
         raise AssertionError("the f32 dispatch on the card disagrees with eager steps or the CPU (see its line)")
     return {"runs": runs, "trainer": trainer}
+
+
+def _rank_rows(batches: dict, rank: int, world: int) -> dict:
+    """This rank's rows of (K, B, …) batches or draws."""
+    from mdn_sfm_tpu_torch.parallel import local_rows
+
+    return {key: local_rows(v.transpose(0, 1), rank, world).transpose(0, 1).contiguous() for key, v in batches.items()}
+
+
+def dp_collective_check(group) -> dict:
+    """The collective alone: each rank's rank + 1 summed over the group, once
+    eagerly and once replayed from a CUDA graph that captured it (after a
+    warm-up on a side stream, as ``KStepDispatch`` captures)."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    want = world * (world + 1) / 2
+    x = torch.full((1024,), float(rank + 1), device="cuda")
+    dist.all_reduce(x, group=group)
+    eager_ok = bool((x == want).all())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.fill_(rank + 1)
+        dist.all_reduce(x, group=group)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        dist.all_reduce(x, group=group)
+    x.fill_(rank + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_ok = bool((x == want).all())
+    return {"ranks": world, "eager_ok": eager_ok, "graph_ok": graph_ok, "ok": eager_ok and graph_ok}
+
+
+def dp_f32_check(group) -> dict:
+    """At the CPU tests' size (64×96, 2 samples a rank, f32, augmentation
+    on), K = DISPATCH_K steps from one state and one set of draws: the
+    group's eager steps against EAGER_RUNS runs of one process with no group
+    on the global batch (one rank: phase 10's rule, ``_against_eager``;
+    several ranks sum in another order, and Adam's first update flips the
+    sign of noise-floor elements, so step 0 alone, within DP_STEP0_RTOL);
+    one graph replay of the group's K steps against EAGER_RUNS runs of its
+    eager steps (phase 10's rule); every rank's params equal bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+
+    k = DISPATCH_K
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    cfg = Config(height=64, width=96, batch_size=2 * world, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                 compute_dtype="float32").validate()
+    pairs = [synthetic_batch(2 * world, 64, 96, seed=s) for s in range(k)]
+    batches = {"colors_u8": torch.from_numpy(np.stack([c for c, _ in pairs])).cuda(),
+               "K": torch.from_numpy(np.stack([q for _, q in pairs])).cuda()}
+    draws = T.multi_step_draws(cfg, batches, 0)
+    mine = _rank_rows(batches, rank, world)
+
+    def run(g):
+        b, d = (mine, T.multi_step_draws(cfg, mine, 0, g)) if g is not None else (batches, draws)
+        models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+        opt = T.make_optimizer(cfg, models, steps_per_epoch=10)
+        per = [T.train_step(cfg, models, opt, {key: v[j] for key, v in b.items()},
+                            draws={key: v[j] for key, v in d.items()}, group=g)[0] for j in range(k)]
+        return {key: torch.stack([m[key] for m in per]).cpu() for key in per[0]}, [p.detach().cpu() for p in opt.params]
+
+    alone = [run(None) for _ in range(EAGER_RUNS)]
+    grouped = [run(group) for _ in range(EAGER_RUNS)]
+    if world == 1:
+        eager = _against_eager(grouped[0], alone, cfg.learning_rate, k)
+    else:
+        rel = {key: abs(float(grouped[0][0][key][0]) - float(alone[0][0][key][0])) / abs(float(alone[0][0][key][0]))
+               for key in alone[0][0]}
+        eager = {"step0_rel_err": rel, "tol_rel": DP_STEP0_RTOL, "ok": max(rel.values()) <= DP_STEP0_RTOL}
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt = T.make_optimizer(cfg, models, steps_per_epoch=10)
+    kstep = T.make_multi_train_step(cfg, models, opt, k, group=group)
+    kstep(mine, T.multi_step_draws(cfg, mine, 0, group))
+    graph = _against_eager(({key: v.cpu() for key, v in kstep.step_metrics.items()},
+                            [p.detach().cpu() for p in opt.params]), grouped, cfg.learning_rate, k)
+    flat = torch.cat([p.detach().flatten() for p in opt.params])
+    every = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(every, flat, group=group)
+    ranks_equal = all(torch.equal(x, every[0]) for x in every)
+    ok = eager["ok"] and graph["ok"] and ranks_equal and kstep.replays == 1 and opt.count == k
+    return {"k": k, "shape": [2 * world, 64, 96], "ranks": world, "group_eager_vs_one_process": eager,
+            "group_graph_vs_group_eager": graph, "params_bitwise_equal_across_ranks": ranks_equal, "ok": ok}
+
+
+def dp_trainer_run(base: str, smi: str) -> dict:
+    """The Trainer through the group (TG, 64×96, BATCH a rank, f32; ``base``
+    shared by the ranks, rank 0 writes): run
+    A, DP_TRAINER_STEPS steps with a checkpoint every SAVE_EVERY; run B
+    stopped after DP_STOP_AFTER by the flag the SIGTERM handler sets; run B2
+    resumed with ``resume="auto"``, whose loaded params and Adam equal B's
+    at its stop bit for bit, which takes A's batches, and lands within phase
+    6's bounds of A's params."""
+    import torch
+
+    import torch.distributed as dist
+
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.parallel import barrier
+    from mdn_sfm_tpu_torch.trainer import Trainer
+
+    world = dist.get_world_size()
+
+    def config(v_save: str, **kw) -> Config:
+        return Config(height=64, width=96, batch_size=BATCH * world, mode=Mode.TG, threshold=9.22, w_d2_sim=0.0,
+                      compute_dtype="float32", num_epochs=1, limit_train_samples=BATCH * world * DP_TRAINER_STEPS,
+                      save_frequency=SAVE_EVERY, log_frequency=10**6, num_workers=2,
+                      log_dir=os.path.join(base, "log"), other_files_path=os.path.join(base, "files"),
+                      v_save=v_save, num_data_shards=world, **kw).validate()
+
+    _zero_counts()
+    tA = Trainer(config("vA"), synthetic=True, device="cuda")
+    tA.train()
+    counts = _counts()
+    params_A, _ = _mobile_and_adam(tA)
+    tB = Trainer(config("vB"), synthetic=True, device="cuda")
+    inner = tB.step_fn
+
+    def stop_after(*a):
+        out = inner(*a)
+        if len(tB.sample_history) == DP_STOP_AFTER:
+            tB._stop_requested = True  # what the SIGTERM handler sets
+        return out
+
+    tB.step_fn = stop_after
+    tB.train()
+    barrier()  # rank 0's checkpoint is on disk before any rank resumes
+    params_stop, adam_stop = _mobile_and_adam(tB)
+    tB2 = Trainer(config("vB", resume="auto"), synthetic=True, device="cuda")
+    params_loaded, adam_loaded = _mobile_and_adam(tB2)
+    loaded_exact = (_params_equal(params_loaded, params_stop) and _adam_equal(adam_loaded, adam_stop)
+                    and tB2.start_step == tB.opt.count == DP_STOP_AFTER)
+    tB2.train()
+    params_B, _ = _mobile_and_adam(tB2)
+    same_batches = tB.sample_history + tB2.sample_history == tA.sample_history
+    diff, mean_diff = _drift(params_B, params_A)
+    finite = all(bool(torch.isfinite(v).all()) for v in params_A.values())
+    rec = {"group": [tA.rank, tA.world], "steps": DP_TRAINER_STEPS, "shape": [BATCH * world, 64, 96],
+           "epipolar_launches": counts["epipolar_launches"], "expected_launches": DP_TRAINER_STEPS,
+           "resume_start_step": tB2.start_step, "resume_loaded_exact": loaded_exact,
+           "resume_same_batches": same_batches, "resume_max_param_abs_diff": diff,
+           "resume_param_atol": 2 * LR * (DP_TRAINER_STEPS - DP_STOP_AFTER),
+           "resume_mean_param_abs_diff": mean_diff, "resume_mean_atol": RESUME_MEAN_ATOL,
+           "adam_count": tA.opt.count, "params_finite": finite}
+    ok = (loaded_exact and same_batches and finite and diff <= rec["resume_param_atol"]
+          and mean_diff <= RESUME_MEAN_ATOL and tA.opt.count == tB2.opt.count == DP_TRAINER_STEPS
+          and tA.group is not None and counts["epipolar_launches"] == DP_TRAINER_STEPS)
+    emit({"phase": "dp_trainer", **rec, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the Trainer through the process group failed (see its line)")
+    return rec
+
+
+def data_parallel_worker(smi: str, base: str) -> None:
+    """Phase 11's process: one rank of an NCCL group (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` from
+    the parent), the collective alone, the f32 check, the main path through the group (BATCH
+    samples a rank: eager steps, then K = DISPATCH_K steps a dispatch as one
+    graph with their all-reduces inside), the Trainer through it in
+    ``base``. Prints a JSON line a part and its result last."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+    from mdn_sfm_tpu_torch.parallel import init_distributed, local_rows, shutdown_distributed
+
+    # a rank still running near the parent's limit prints where it waits
+    faulthandler.dump_traceback_later(DP_WORKER_TIMEOUT_S - 20, exit=False)
+    init_distributed("cuda", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), "env://")
+    group = dist.group.WORLD
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        coll = dp_collective_check(group)
+        emit({"phase": "dp_collective", **coll, "card": smi})
+        if not coll["ok"]:
+            raise AssertionError("the all-reduce through the group is wrong (see its line)")
+        small = dp_f32_check(group)
+        emit({"phase": "dp_f32", **small, "card": smi})
+        if not small["ok"]:
+            raise AssertionError("the f32 step through the group disagrees with the step without (see its line)")
+
+        # the main path through the group: TG, 640×192, BATCH a rank, bf16
+        cfg = _options_config(batch_size=BATCH * world)
+        models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+        opt = T.make_optimizer(cfg, models, steps_per_epoch=1000)
+        batches = []
+        for seed in range(4):
+            colors, K = synthetic_batch(BATCH * world, HEIGHT, WIDTH, seed=seed)
+            batches.append({"colors_u8": local_rows(torch.from_numpy(colors), rank, world).cuda(),
+                            "K": local_rows(torch.from_numpy(K), rank, world).cuda()})
+        for i in range(WARMUP_STEPS):
+            T.train_step(cfg, models, opt, batches[i % 4], generator=T.step_generator(cfg.seed, i, "cuda"),
+                         group=group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        times, losses = [], []
+        for i in range(DP_STEPS):
+            t0 = time.perf_counter()
+            m, _ = T.train_step(cfg, models, opt, batches[i % 4],
+                                generator=T.step_generator(cfg.seed, WARMUP_STEPS + i, "cuda"), group=group)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = _counts()
+        eager = {"median_step_ms": 1e3 * statistics.median(times),
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        finite = all(math.isfinite(x) for x in losses)
+        eager_ok = finite and counts["epipolar_launches"] == DP_STEPS and counts["epipolar_maps"] == 8 * DP_STEPS
+        emit({"phase": "dp_train_step", "mode": "TG", "height": HEIGHT, "width": WIDTH, "global_batch": BATCH * world,
+              "ranks": world, "rank": rank, "backend": dist.get_backend(), "steps": DP_STEPS, **eager,
+              "ms_per_step": [1e3 * t for t in times], **counts, "losses_finite": finite, "card": smi,
+              "ok": eager_ok})
+        if not eager_ok:
+            raise AssertionError("the main path through the group failed (see its line)")
+        del models, opt
+        torch.cuda.empty_cache()
+        graph = graph_run(f"TG_nccl_{world}_rank", cfg, DISPATCH_K, batches, smi, eager, group=group)
+        trainer = dp_trainer_run(base, smi)
+        nccl_keys = ("nccl_kernels_per_step", "nccl_device_ms_per_step", "nccl_kernel_names")
+        emit({"dp_result": {"rank": rank, "ranks": world, "eager": {**eager, **counts},
+                            "graph_ms_per_step": graph["median_ms_per_step"], "graph_capture_s": graph["capture_s"],
+                            "graph_counts": {c: graph[c] for c in ("epipolar_launches", "epipolar_maps")},
+                            "nccl_eager": {key: graph["trace_eager"][key] for key in nccl_keys},
+                            "nccl_graph": {key: graph["trace_dispatch"][key] for key in nccl_keys},
+                            "trainer_resume_mean_diff": trainer["resume_mean_param_abs_diff"]}})
+    finally:
+        shutdown_distributed()
+
+
+def data_parallel_phase(smi: str, tg_eager_ms: float | None, tg_k4_ms: float | None, ranks: int = 1) -> dict:
+    """Phase 11: :func:`data_parallel_worker` in ``ranks`` processes of their
+    own, one card each, an NCCL group at a free port of 127.0.0.1; rank 0's
+    lines pass through, and a summary sets its figures beside phase 4's
+    eager step and phase 10's K = DISPATCH_K step of this call (None when
+    they did not run)."""
+    import shutil
+    import socket
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = tempfile.mkdtemp(prefix="mdn_dp_")
+    procs, logs = [], []
+    try:
+        # each rank writes to files, read after all end: a pipe no one drains
+        # could block one rank and, through the collectives, all of them
+        for r in range(ranks):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+                       WORLD_SIZE=str(ranks), LOCAL_RANK=str(r))
+            logs.append(tuple(open(os.path.join(base, f"rank{r}.{ext}"), "w+") for ext in ("out", "err")))
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--data-parallel-rank", smi,
+                                           base], env=env, stdout=logs[-1][0], stderr=logs[-1][1], text=True))
+        deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+        for p in procs:  # a failed or hung rank takes the others down
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        outs = []
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read()))
+    finally:
+        for out, err in logs:
+            out.close()
+            err.close()
+        shutil.rmtree(base, ignore_errors=True)
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = out.strip().splitlines()
+        if r == 0:
+            for line in lines[:-1]:
+                print(line, flush=True)
+        if p.returncode != 0 or not lines or "dp_result" not in lines[-1]:
+            for q, (o, e) in enumerate(outs):
+                print(f"---- rank {q} (exit {procs[q].returncode}) stdout:\n{o[-3000:]}\n---- stderr:\n{e[-6000:]}",
+                      file=sys.stderr)
+            raise AssertionError(f"the data-parallel phase failed on rank {r} (exit {p.returncode})")
+        results.append(json.loads(lines[-1])["dp_result"])
+    res = results[0]
+    emit({"phase": "data_parallel_summary", "ranks": ranks, "backend": "nccl",
+          "eager_ms_per_step": [r["eager"]["median_step_ms"] for r in results],
+          "phase4_eager_ms_per_step": tg_eager_ms,
+          "k4_ms_per_step": [r["graph_ms_per_step"] for r in results], "phase10_k4_ms_per_step": tg_k4_ms,
+          "nccl_eager": res["nccl_eager"], "nccl_graph": res["nccl_graph"],
+          "phase_seconds": time.perf_counter() - t_phase, "card": smi, "ok": True})
+    return res
+
+
+def data_parallel_only(ranks: int) -> None:
+    """``python3 chip_smoke.py --ranks N``: the kernels built and phase 11
+    on N cards of this host, N ranks of one NCCL group (each the same checks
+    as one rank's; the main path at BATCH samples a rank); the last line as
+    the whole script prints it."""
+    import torch
+
+    from mdn_sfm_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < ranks:
+        raise SystemExit(f"chip_smoke --ranks {ranks}: needs {ranks} CUDA devices")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    _build.build_all()
+    data_parallel_phase(smi, None, None, ranks)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
 
 
 def main() -> None:
@@ -2078,6 +2437,9 @@ def main() -> None:
         # phase 10's fused DS dispatches: launches counted as captured launches × replays
         entry["graph_dispatch_launches"] = graph_counts["DS_fused"][f"{entry['name']}_launches"]
 
+    # ---- 11. data parallelism: the step through a one-rank NCCL group
+    dp = data_parallel_phase(smi, 1e3 * med, graph10["runs"][f"TG_K{DISPATCH_K}"]["median_ms_per_step"])
+
     # ---- summary lines
     emit({"kernels": [{
         "name": "epipolar_abs_residual_maps",
@@ -2112,10 +2474,20 @@ def main() -> None:
         # graph dispatches (captured launches × replays; none in the fine-tune step)
         "graph_dispatch": {name: {"launches": c["epipolar_launches"], "maps": c["epipolar_maps"]}
                            for name, c in graph_counts.items()},
+        # phase 11: launches and maps in the DP_STEPS eager steps through the
+        # one-rank group and in its 1 + DISPATCH_TIMED K-step dispatches
+        "data_parallel": {"eager": {"launches": dp["eager"]["epipolar_launches"], "maps": dp["eager"]["epipolar_maps"]},
+                          "graph_dispatch": {"launches": dp["graph_counts"]["epipolar_launches"],
+                                             "maps": dp["graph_counts"]["epipolar_maps"]}},
     }] + mask_entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--data-parallel-rank"]:  # a rank of phase 11
+        data_parallel_worker(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--ranks"]:  # phase 11 alone, on that many cards of this host
+        data_parallel_only(int(sys.argv[2]))
+    else:
+        main()

@@ -1,9 +1,15 @@
 """Configuration — the port's own copy of ``mdn_sfm_tpu.config``.
 
 Same dataclass field names and defaults, so one ``opt.json`` reads in both
-packages. The one field whose behaviour this port does not implement yet
-(``num_data_shards > 1``) raises ``NotImplementedError`` in
-:meth:`Config.validate`; it is never ignored.
+packages.
+
+``num_data_shards`` counts processes here, one a device (the JAX package
+counts the devices of its data mesh): 0 means the process group's size,
+and any other value must equal it, which the ``Trainer`` checks once the
+group exists. One process driving several cards is not PyTorch's idiom, so
+the JAX single-host rule that shrinks the mesh to a divisor of the batch
+has no counterpart: as on the JAX package's multi-host path, a global
+``batch_size`` that does not divide by the group's size raises.
 """
 
 from __future__ import annotations
@@ -173,10 +179,8 @@ class Config:
             raise ValueError(f"accum_steps must be >= 1, not {self.accum_steps}")
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, not {self.steps_per_dispatch}")
-        if self.num_data_shards > 1:
-            raise NotImplementedError(
-                "num_data_shards > 1 (data parallelism) is not implemented by the PyTorch port yet"
-            )
+        if self.num_data_shards < 0:
+            raise ValueError(f"num_data_shards must be >= 0 (0: the process group's size), not {self.num_data_shards}")
         # DS/DC with the live provider below the reference's shortest-edge-1024
         # inference resolution trains on measurably different union masks:
         # warn once, so a README-comparison run is never silently off-spec

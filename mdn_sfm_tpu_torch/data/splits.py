@@ -64,12 +64,17 @@ def read_split_lines(path: str) -> list[SplitLine]:
     return [SplitLine.parse(ln) for ln in text.splitlines() if ln.strip()]
 
 
-def shard_for_host(lines: list, host_id: int = 0, host_count: int = 1) -> list:
-    """Static per-host shard of the manifest, strided so drives interleave.
+def shard_for_host(lines: list, host_id: int | None = None, host_count: int | None = None) -> list:
+    """Static per-process shard of the manifest, strided so drives
+    interleave; ``host_id`` and ``host_count`` default to the process
+    group's rank and size (0 and 1 without a group).
 
-    Every host's shard is cut to the common length ``len(lines) //
-    host_count``, so all hosts run the same number of steps an epoch. One
-    process is host 0 of 1 (the whole manifest) until multi-GPU data
-    parallelism comes."""
+    Every shard is cut to the common length ``len(lines) // host_count``, so
+    all processes run the same number of steps an epoch: a process with one
+    more step would enter an all-reduce the others never reach."""
+    if host_id is None:
+        from ..parallel import process_count, process_index
+
+        host_id, host_count = process_index(), process_count()
     per_host = len(lines) // host_count
     return lines[host_id::host_count][:per_host]

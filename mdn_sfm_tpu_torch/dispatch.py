@@ -24,6 +24,11 @@ What the capture needs, and how it is met:
   the state the caller held;
 * the kernels' launch counters count at capture, where nothing runs: the
   capture's counts are taken back, and each replay adds them.
+* with a process group (data parallelism) the graph holds each step's
+  all-reduce: every rank reaches the warm-up and the capture at the same
+  dispatch, and the warm-up's all-reduces have set up the communicator
+  before the capture records any; NCCL's watchdog thread polls its work
+  meanwhile, which ``capture_error_mode="thread_local"`` allows.
 
 A capture that fails raises; a dispatch never falls back to eager steps.
 """
@@ -63,10 +68,11 @@ class KStepDispatch:
     the next dispatch. The graph is captured at the first call, or by
     :meth:`capture`; :attr:`capture_seconds` says how long it took."""
 
-    def __init__(self, cfg, models: T.ModelBundle, opt: T.Adam, k: int, provider=None):
+    def __init__(self, cfg, models: T.ModelBundle, opt: T.Adam, k: int, provider=None, group=None):
         if k < 1:
             raise ValueError(f"a dispatch takes k >= 1 steps, not {k}")
         self.cfg, self.models, self.opt, self.k, self.provider = cfg, models, opt, k, provider
+        self.group = group
         self.device = opt.params[0].device
         self.graph: torch.cuda.CUDAGraph | None = None
         self.capture_seconds: float | None = None
@@ -85,7 +91,7 @@ class KStepDispatch:
         self._check(batches, draws)
         if self.device.type == "cpu":
             metrics, aux, self.step_metrics = T.k_train_steps(self.cfg, self.models, self.opt, batches, draws,
-                                                              self.provider)
+                                                              self.provider, self.group)
             return metrics, aux
         if self.device.type != "cuda":
             raise ValueError(f"unsupported device {self.device}")
@@ -119,7 +125,7 @@ class KStepDispatch:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            T.k_train_steps(self.cfg, self.models, self.opt, self._batches, self._draws, self.provider)
+            T.k_train_steps(self.cfg, self.models, self.opt, self._batches, self._draws, self.provider, self.group)
         current.wait_stream(side)
         with torch.no_grad():
             for t, v in zip(state, saved):
@@ -132,7 +138,7 @@ class KStepDispatch:
             # may call into CUDA while this thread captures
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._metrics, self._aux, self.step_metrics = T.k_train_steps(
-                    self.cfg, self.models, self.opt, self._batches, self._draws, self.provider)
+                    self.cfg, self.models, self.opt, self._batches, self._draws, self.provider, self.group)
         finally:
             launched = [a - b for a, b in zip(_read_counters(), before)]
             _add_counters([-n for n in launched])  # nothing ran at capture

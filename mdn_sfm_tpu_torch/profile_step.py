@@ -58,9 +58,12 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 
 def _device_kernels(prof) -> list:
     # record_function also puts each stage on the device timeline as a user
-    # annotation spanning its kernels: those are labels, not kernels
+    # annotation spanning its kernels, and ProcessGroupNCCL each collective
+    # ("nccl:all_reduce", spanning the wait for the other ranks): those are
+    # labels, not kernels
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in T.STAGES]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in T.STAGES
+            and not e.name.startswith("nccl:")]
 
 
 STEP_OPTIONS = ("fine_tune_flow_motion", "remat", "accum_steps", "bn_frozen_eval", "skip_nonfinite_updates")

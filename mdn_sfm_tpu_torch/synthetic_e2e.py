@@ -34,7 +34,7 @@ them (the JAX multi-step's metric). Prints one JSON line with the JAX
 tool's keys. Runs on the card unless ``--device`` names another device. The
 nets compute in bfloat16 on the card, as the JAX tool's do, and in float32
 on the CPU, where PyTorch's bf16 autocast is slow and its conv backward does
-not repeat bit for bit.
+not repeat bit for bit; ``--compute_dtype`` sets it otherwise.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def residual_quantiles(cfg: Config, models: T.ModelBundle, batch: dict, levels: 
 
 
 def _compute_dtype(args) -> str:
-    return "bfloat16" if torch.device(args.device).type == "cuda" else "float32"
+    return args.compute_dtype or ("bfloat16" if torch.device(args.device).type == "cuda" else "float32")
 
 
 def phase1_config(args) -> Config:
@@ -215,7 +215,8 @@ def _kernel_counts() -> dict:
 def run(args, record: dict | None = None) -> dict:
     """The whole rehearsal; returns the JAX tool's result dict. ``record``,
     when given, receives what each phase did (steps, seconds, each kernel's
-    launches)."""
+    launches), and phase 1's photometric loss, largest |flow| and flow EPE
+    after each group (``phase1_groups``)."""
     device = resolve_device(args.device)
     h, w, bs = args.height, args.width, args.batch_size
     record = {} if record is None else record
@@ -257,9 +258,17 @@ def run(args, record: dict | None = None) -> dict:
     f0, _ = clean_forward(cfg1, models, colors0)
     results["epe_init"], _, _ = flow_epe(f0)
 
+    record["phase1_groups"] = []
+
     def photo_check(g, loss):
+        # each group's photometric loss, and the eval world's largest |flow|
+        # (px) and EPE: where a run that falls into the optimum below leaves
+        flows_px, _ = clean_forward(cfg1, models, colors0)
+        epe, max_flow = flow_epe(flows_px)[0], float(max(np.abs(f).max() for f in flows_px.values()))
+        record["phase1_groups"].append({"photo": loss, "max_abs_flow_px": max_flow, "epe": epe})
         if args.verbose:
-            print(f"phase1 group {g}: photo={loss:.4f}", file=sys.stderr)
+            print(f"phase1 group {g}: photo={loss:.6g} max|flow|={max_flow:.6g} px epe={epe:.6g}",
+                  file=sys.stderr)
         # the photometric loss's degenerate optimum: flow that warps every
         # sample out of bounds makes the masked mean exactly 0 with no
         # gradient. Fail fast instead of training phase 2 on broken flow
@@ -360,7 +369,8 @@ def run(args, record: dict | None = None) -> dict:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX tool's flags, with its defaults, plus ``--device``."""
+    """The JAX tool's flags, with its defaults, plus ``--device`` and
+    ``--compute_dtype``."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--height", type=int, default=64)
     p.add_argument("--width", type=int, default=128)
@@ -389,6 +399,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_dir", default=os.path.join("log", "e2e"))
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device", type=str, default="cuda", help="default: cuda")
+    p.add_argument("--compute_dtype", default="", choices=("", "bfloat16", "float32"),
+                   help="default: bfloat16 on the card (the JAX tool's), float32 on the CPU")
     return p
 
 

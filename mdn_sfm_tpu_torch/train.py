@@ -9,6 +9,14 @@
 
 Runs on the card unless ``--device`` names another device; without CUDA
 and without ``--device cpu`` it raises.
+
+Data parallelism: one process a device, launched with torchrun or with the
+JAX package's variables (``MDN_COORDINATOR=host:port``,
+``MDN_NUM_PROCESSES``, ``MDN_PROCESS_ID``; ``LOCAL_RANK`` picks the card),
+NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``; ``--batch_size``
+is the global batch:
+
+    torchrun --nproc_per_node 4 -m mdn_sfm_tpu_torch.train --synthetic --batch_size 16
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import argparse
 from typing import Sequence
 
 from .config import add_train_args, from_args
+from .parallel import maybe_initialize_distributed, process_device, shutdown_distributed
 from .trainer import Trainer
 
 
@@ -36,13 +45,19 @@ def main(argv: Sequence[str] | None = None) -> None:
     args = parser.parse_args(argv)
     cfg = from_args(args)
 
-    trainer = Trainer(cfg, synthetic=args.synthetic, debug_nans=args.debug_nans, device=args.device)
-    if args.epipolar_statics:
-        print("Thresholds are :", trainer.epipolar_statics())
-    elif args.hyper:
-        print(trainer.hyperparameter_try(args.hyper, args.hyper_values))
-    else:
-        trainer.train()
+    # before the Trainer, as the JAX package's train.py: a group when the
+    # environment describes more than one process, on this rank's card
+    device = process_device(args.device) if maybe_initialize_distributed(args.device) else args.device
+    try:
+        trainer = Trainer(cfg, synthetic=args.synthetic, debug_nans=args.debug_nans, device=device)
+        if args.epipolar_statics:
+            print("Thresholds are :", trainer.epipolar_statics())
+        elif args.hyper:
+            print(trainer.hyperparameter_try(args.hyper, args.hyper_values))
+        else:
+            trainer.train()
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -7,10 +7,16 @@ the SIGTERM/SIGINT checkpoint at the next batch boundary, inline validation
 on KITTI-2015 (when ``data_root/data_scene_flow`` exists), the epipolar
 percentile tool and the hyperparameter grid.
 
-One process on one device (``cuda`` unless asked otherwise). An epoch's
-order depends only on (seed, epoch) and a step's augmentation only on
-(seed, step), so a run that is interrupted and resumed takes the batches
-and draws of one that was not.
+One process on one device (``cuda`` unless asked otherwise), or one rank
+of a data-parallel process group (:mod:`.parallel`; the counterpart of the
+JAX Trainer's multi-host run): ``batch_size`` is then the global batch,
+each rank reads its shard of the data with ``batch_size / ranks`` samples
+a step, the step averages over the group, and rank 0 alone writes logs,
+``opt.json`` and checkpoints; every rank resumes from the same files. An
+epoch's order depends only on (seed, epoch) and a step's augmentation only
+on (seed, step), so a run that is interrupted and resumed takes the batches
+and draws of one that was not. A stop signal is seen by the rank that gets
+it, as in the JAX Trainer: launch tools signal every rank.
 """
 
 from __future__ import annotations
@@ -27,13 +33,14 @@ import torch
 from . import checkpoints as ckpt
 from . import training as T
 from .config import Config, Mode
-from .data import HostLoader, KittiRawDataset, SyntheticDataset, read_split_lines, split_path
+from .data import HostLoader, KittiRawDataset, Subset, SyntheticDataset, read_split_lines, split_path
 from .data.augment import augment_batch
 from .data.splits import repo_root, sample_key, shard_for_host
 from .geometry import gauss_distance_weight
 from .losses import epipolar_loss_terms
 from .masks import build_mask_provider
 from .ops.epipolar import EpipolarMap, epipolar_abs_residual_maps
+from .parallel import barrier, current_group, group_rank_and_size
 from .utils import resolve_device
 from .viz import flow_to_image, normalize_image, sec_to_hm_str
 
@@ -42,13 +49,23 @@ PROFILE_STEPS = (10, 15)
 
 
 class Trainer:
-    """End-to-end training pipeline on one device."""
+    """End-to-end training pipeline on one device, or on this process's
+    device as one rank of the process group when ``torch.distributed`` has
+    one (:func:`~.parallel.maybe_initialize_distributed`)."""
 
     def __init__(self, cfg: Config, synthetic: bool = False, debug_nans: bool = False,
                  device: str | torch.device | None = None):
         self.cfg = cfg.validate()
         self.synthetic = synthetic
         self.device = resolve_device(device)
+        self.group = current_group()
+        self.rank, self.world = group_rank_and_size(self.group)
+        if cfg.num_data_shards not in (0, self.world):
+            raise ValueError(f"num_data_shards={cfg.num_data_shards} needs a process group of that many ranks, "
+                             f"this process has {self.world} (0 takes the group's size)")
+        if cfg.batch_size % self.world:
+            raise ValueError(f"the global batch_size {cfg.batch_size} must divide by the {self.world} ranks")
+        self.local_batch = cfg.batch_size // self.world
         self.save_path = os.path.join(cfg.log_dir, cfg.v_save)
         if debug_nans:
             if cfg.steps_per_dispatch > 1 and self.device.type == "cuda":
@@ -78,6 +95,8 @@ class Trainer:
     # ------------------------------------------------------------ setup
 
     def _make_writers(self):
+        if self.rank != 0:
+            return None  # one writer for a shared log dir
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -94,11 +113,15 @@ class Trainer:
             n = cfg.limit_train_samples or max(cfg.batch_size * 8, 64)
             dataset = SyntheticDataset(n, cfg.height, cfg.width, len(cfg.frame_ids))
             self.sample_keys = [str(i) for i in range(n)]
+            if self.world > 1:
+                idxs = shard_for_host(list(range(n)), self.rank, self.world)
+                dataset = Subset(dataset, idxs)
+                self.sample_keys = [self.sample_keys[i] for i in idxs]
         else:
             lines = read_split_lines(split_path(repo_root(), cfg.split, "train"))
             if cfg.limit_train_samples:
                 lines = lines[: cfg.limit_train_samples]
-            lines = shard_for_host(lines)
+            lines = shard_for_host(lines, self.rank, self.world)
             img_ext = ".png" if cfg.png else ".jpg"
             dataset = KittiRawDataset(cfg.data_path, lines, cfg.height, cfg.width, cfg.frame_ids, img_ext)
             if cfg.cache_decoded:
@@ -109,7 +132,7 @@ class Trainer:
                 dataset = DecodedCache(dataset, cfg.cache_decoded)
             self.sample_keys = [sample_key(l) for l in lines]
 
-        self.train_loader = HostLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+        self.train_loader = HostLoader(dataset, self.local_batch, shuffle=True, seed=cfg.seed,
                                        num_workers=cfg.num_workers, drop_last=True)
         self.steps_per_epoch = len(self.train_loader)
         self.num_total_steps = self.steps_per_epoch * cfg.num_epochs
@@ -215,13 +238,13 @@ class Trainer:
 
         def step_fn(batch: dict, generator: torch.Generator):
             return T.train_step(cfg, self.models, self.opt, batch, generator=generator,
-                                provider=self.fused_provider)
+                                provider=self.fused_provider, group=self.group)
 
         self.step_fn = step_fn
         # steps_per_dispatch > 1: K steps a call, captured as one CUDA graph
         # at the first dispatch on the card (training.make_multi_train_step)
         self.kstep = (T.make_multi_train_step(cfg, self.models, self.opt, cfg.steps_per_dispatch,
-                                              provider=self.fused_provider)
+                                              provider=self.fused_provider, group=self.group)
                       if cfg.steps_per_dispatch > 1 else None)
         self.multi_fn = self.kstep
         self.capture_seconds = None
@@ -229,7 +252,8 @@ class Trainer:
     # ----------------------------------------------------------- running
 
     def save_opts(self):
-        self.cfg.save(os.path.join(self.save_path, "models", "opt.json"))
+        if self.rank == 0:
+            self.cfg.save(os.path.join(self.save_path, "models", "opt.json"))
 
     def save_model(self, idx_save: int, async_write: bool = False):
         """Write ``weights_{idx_save}``: the nets being trained (the mobile
@@ -241,8 +265,11 @@ class Trainer:
         tensors being written. With ``async_write`` (the save_frequency saves)
         the file write runs on a background thread; a later save or
         :meth:`_join_pending_save` waits for it and raises its error. The
-        default writes before returning."""
+        default writes before returning. In a process group rank 0 alone
+        writes: every rank holds the same params."""
         self._join_pending_save()
+        if self.rank != 0:
+            return
         folder = ckpt.weights_folder(self.cfg.log_dir, self.cfg.v_save, idx_save)
         t0 = time.perf_counter()
         mods = T.modules_by_name(self.models)
@@ -327,6 +354,8 @@ class Trainer:
             self._stop_requested = True
 
         prev = {}
+        # every rank reaches the first step's all-reduce together
+        barrier()
         # the loop's wall clock, from the first batch request to the last
         # loss read: the loader's waits and the checkpoints' host copies in it
         self.loop_start = self.last_loss_read = time.perf_counter()
@@ -431,7 +460,7 @@ class Trainer:
                 self.sample_history.append((self.step + j, idx))
             batches = {key: torch.stack([b[key] for _, b in pend]) for key in pend[0][1]}
             pend = []
-            metrics, aux = self.multi_fn(batches, T.multi_step_draws(cfg, batches, self.step))
+            metrics, aux = self.multi_fn(batches, T.multi_step_draws(cfg, batches, self.step, self.group))
             if self.capture_seconds is None and self.kstep.capture_seconds is not None:
                 self.capture_seconds = self.kstep.capture_seconds
                 print(f"captured {k} train steps as one CUDA graph in {self.capture_seconds:.2f} s", flush=True)
@@ -593,9 +622,11 @@ class Trainer:
                     all_q[i].append(q.cpu().numpy())
 
         percentiles = np.stack([np.concatenate(all_q[i], axis=1) for i in cfg.ref_frame_ids])
+        thresholds = np.percentile(percentiles.reshape(-1), [80, 85, 88, 90, 92, 95, 98, 99])
+        if self.rank != 0:
+            return thresholds  # each rank's own shard; rank 0 writes its own
         os.makedirs(cfg.other_files_path, exist_ok=True)
         np.save(os.path.join(cfg.other_files_path, f"{cfg.split}_percentiles.npy"), percentiles)
-        thresholds = np.percentile(percentiles.reshape(-1), [80, 85, 88, 90, 92, 95, 98, 99])
         np.savetxt(os.path.join(cfg.other_files_path, f"{cfg.split}_thresholds"), thresholds)
         return thresholds
 
@@ -617,7 +648,8 @@ class Trainer:
                     break
                 batch = self._device_batch(arrays, [self.sample_keys[int(i)] for i in idxs])
                 metrics, _ = T.train_step(new_cfg, models, opt, batch, provider=self.fused_provider,
-                                          generator=T.step_generator(new_cfg.seed, bi, self.device))
+                                          generator=T.step_generator(new_cfg.seed, bi, self.device),
+                                          group=self.group)
                 if self.writers and bi % 50 == 0:
                     for k in ("loss", "epip", "smooth", "consis"):
                         self.writers["train"].add_scalar(f"{v}/{k}", float(metrics[k]), bi)

@@ -20,6 +20,12 @@ package:
   update on the mean gradient;
 * ``skip_nonfinite_updates``: a step with a NaN/Inf gradient changes
   nothing (``optax.apply_if_finite``).
+
+With a process group (``group``, :mod:`.parallel`) the step is the JAX
+package's ``shard_map`` step: each rank takes its rows of the global batch
+and their augmentation draws, and one all-reduce a step averages the
+gradients, the loss scalars and, with train-mode BN, the BatchNorm running
+averages before Adam; ``grad_norm`` is the norm of the averaged gradient.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from .geometry import transformation_from_parameters
 from .losses import LossAux, compute_losses
 from .models import FlowNet, MobileDecoder, PoseNet
 from .models.resnet import BatchNorm2d
+from .parallel.data_parallel import all_reduce_mean, group_rank_and_size, local_rows
 from .utils import divisor, resolve_device, use_full_f32
 
 Tensor = torch.Tensor
@@ -492,6 +499,29 @@ def _micro_grads(cfg: Config, models: ModelBundle, opt: Adam, batch: dict, draws
     return grads, parts
 
 
+def _bn_statistics(models: ModelBundle) -> list[Tensor]:
+    """Flow's and pose's BatchNorm running averages: the JAX step's
+    ``batch_stats``."""
+    return [t for m in (models.flow, models.pose) for bn in m.modules() if isinstance(bn, BatchNorm2d)
+            for t in (bn.running_mean, bn.running_var)]
+
+
+def _reduce_over_group(cfg: Config, models: ModelBundle, grads: list[Tensor], metrics: dict, group
+                       ) -> tuple[list[Tensor], dict]:
+    """The data-parallel step's one all-reduce, the JAX step's ``pmean``s:
+    the mean over the group of the gradients, the loss scalars and, with
+    train-mode BN, flow's and pose's running averages (written back in
+    place). Returns the averaged gradients and loss scalars."""
+    stats = [] if cfg.bn_frozen_eval else _bn_statistics(models)
+    keys = list(metrics)
+    out = all_reduce_mean(grads + [metrics[k] for k in keys] + stats, group)
+    n, m = len(grads), len(keys)
+    with torch.no_grad():
+        for t, v in zip(stats, out[n + m:]):
+            t.copy_(v)
+    return out[:n], dict(zip(keys, out[n:n + m]))
+
+
 def train_step(
     cfg: Config,
     models: ModelBundle,
@@ -500,6 +530,7 @@ def train_step(
     generator: torch.Generator | None = None,
     draws: dict | None = None,
     provider=None,
+    group=None,
 ) -> tuple[dict[str, Tensor], LossAux]:
     """One optimizer step on ``batch`` = {'colors_u8': (B, F, H, W, 3) uint8,
     'K': (B, 4, 4)[, 'instance_mask': (B, Hm, Wm)]}, on the batch's device.
@@ -518,17 +549,28 @@ def train_step(
     metrics as 0-d device tensors (loss/epip/smooth/consis[/photo],
     grad_norm; reading one syncs) and the loss's :class:`LossAux` maps,
     detached. Its stages carry the labels of :data:`STAGES` for
-    ``torch.profiler``."""
+    ``torch.profiler``.
+
+    With a process ``group`` (``torch.distributed``; NCCL on the card, gloo
+    on the CPU) ``batch`` is this rank's rows of the global batch, the
+    ``generator`` draws the global batch's augmentation and the rank keeps
+    its rows of it (so each sample gets the draw it gets in a one-process
+    step on the global batch; ``draws``, when given, are the rank's rows),
+    and the gradients, the loss scalars and the train-mode BN averages are
+    averaged over the group in one all-reduce before Adam, which every rank
+    then applies alike. The metrics are the group's means and aux is the
+    rank's own rows."""
     colors_u8 = batch["colors_u8"]
     b, _, h, w, _ = colors_u8.shape
     n_micro = cfg.accum_steps
     if b % n_micro:
         raise ValueError(f"batch {b} must divide by accum_steps {n_micro}")
+    rank, world = group_rank_and_size(group)
     if draws is None and not cfg.disable_augment:
         if generator is None:
             raise ValueError("train_step needs draws or a generator")
         with record_function("augment"):
-            draws = draw_augment(b, h, w, generator)
+            draws = {k: local_rows(v, rank, world) for k, v in draw_augment(b * world, h, w, generator).items()}
     with _native_cpu_convs(colors_u8.device):
         grads, parts = _micro_grads(cfg, models, opt, batch, draws, provider, n_micro)
     with record_function("optimizer"):
@@ -540,27 +582,32 @@ def train_step(
             metrics = {k: torch.stack([m[k] for m, _ in parts]).mean() for k in parts[0][0]}
             aux = LossAux(*({k: torch.cat([getattr(x, field)[k] for _, x in parts]) for k in d}
                             for field, d in zip(LossAux._fields, parts[0][1])))
+        if group is not None:
+            grads, metrics = _reduce_over_group(cfg, models, grads, metrics, group)
         metrics["grad_norm"] = opt.step(grads)
     return metrics, aux
 
 
-def multi_step_draws(cfg: Config, batches: dict, step: int) -> dict[str, Tensor] | None:
+def multi_step_draws(cfg: Config, batches: dict, step: int, group=None) -> dict[str, Tensor] | None:
     """The augmentation draws of the K steps of a dispatch from step ``step``
     on: step ``step + j`` draws from :func:`step_generator` (seed, step + j)
-    on the batches' device, as a single step does, stacked to (K, B, …).
-    None with ``disable_augment``."""
+    on the batches' device, as a single step does, stacked to (K, B, …);
+    with a process ``group``, the global batch's draws and this rank's rows
+    of them. None with ``disable_augment``."""
     if cfg.disable_augment:
         return None
     colors_u8 = batches["colors_u8"]
     k, b, _, h, w, _ = colors_u8.shape
-    per = [draw_augment(b, h, w, step_generator(cfg.seed, step + j, colors_u8.device)) for j in range(k)]
-    return {key: torch.stack([d[key] for d in per]) for key in per[0]}
+    rank, world = group_rank_and_size(group)
+    per = [draw_augment(b * world, h, w, step_generator(cfg.seed, step + j, colors_u8.device)) for j in range(k)]
+    return {key: torch.stack([local_rows(d[key], rank, world) for d in per]) for key in per[0]}
 
 
 def k_train_steps(cfg: Config, models: ModelBundle, opt: Adam, batches: dict, draws: dict | None = None,
-                  provider=None) -> tuple[dict[str, Tensor], LossAux, dict[str, Tensor]]:
+                  provider=None, group=None) -> tuple[dict[str, Tensor], LossAux, dict[str, Tensor]]:
     """:func:`train_step` on each of the K batches of ``batches`` (every
-    entry (K, B, …)) in order, step j with row j of ``draws``. Returns the
+    entry (K, B, …)) in order, step j with row j of ``draws``, each through
+    ``group`` when one is given (K all-reduces). Returns the
     metrics' mean over the K steps, the last step's aux, and the metrics of
     each step ({name: (K,)})."""
     k = batches["colors_u8"].shape[0]
@@ -568,22 +615,23 @@ def k_train_steps(cfg: Config, models: ModelBundle, opt: Adam, batches: dict, dr
     for j in range(k):
         step_draws = None if draws is None else {key: v[j] for key, v in draws.items()}
         metrics, aux = train_step(cfg, models, opt, {key: v[j] for key, v in batches.items()},
-                                  draws=step_draws, provider=provider)
+                                  draws=step_draws, provider=provider, group=group)
         per.append(metrics)
     steps = {key: torch.stack([m[key] for m in per]) for key in per[0]}
     return {key: v.mean() for key, v in steps.items()}, aux, steps
 
 
-def make_multi_train_step(cfg: Config, models: ModelBundle, opt: Adam, k: int, provider=None):
+def make_multi_train_step(cfg: Config, models: ModelBundle, opt: Adam, k: int, provider=None, group=None):
     """K optimizer steps a dispatch, the counterpart of the JAX package's
     ``make_multi_train_step``: a callable on (K, B, …) batches and their
     draws (:func:`multi_step_draws`) that returns the K steps' mean metrics
     and the last step's :class:`LossAux`. On the card a dispatch is one
-    replay of a CUDA graph captured over K steps; on the CPU the K steps run
-    in turn (:class:`~.dispatch.KStepDispatch`)."""
+    replay of a CUDA graph captured over K steps (with a process ``group``,
+    their K all-reduces inside it); on the CPU the K steps run in turn
+    (:class:`~.dispatch.KStepDispatch`)."""
     from .dispatch import KStepDispatch
 
-    return KStepDispatch(cfg, models, opt, k, provider)
+    return KStepDispatch(cfg, models, opt, k, provider, group)
 
 
 @torch.no_grad()

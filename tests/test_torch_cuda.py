@@ -654,3 +654,52 @@ def test_failed_capture_raises(card):
     with pytest.raises(RuntimeError):
         multi(batches, draws)
     assert multi.graph is None
+
+
+# ------------------------------------ data parallelism: a one-rank NCCL group
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "graph"])
+def test_one_rank_nccl_step_equals_the_step_without_a_group(card, tmp_path, graph):
+    """K = 3 f32 steps through a one-rank NCCL group (eager, or one replay of
+    a graph that holds the three all-reduces) against four runs of the same
+    steps with no group from the same state and draws, by chip_smoke.py
+    phase 11's rule (its ``_against_eager``: step 0's losses bit for bit,
+    every metric within twice the runs' largest gap or 3e-5 relative, the
+    params within twice their largest gap or 2·lr a step with few past
+    2e-5)."""
+    import torch.distributed as dist
+
+    from chip_smoke import _against_eager
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.parallel import init_distributed, shutdown_distributed
+
+    k = 3
+    cfg, _, bundles, batches, draws = _dispatch_bundles(card, k=k, n=5)
+    (models, opt), *eager_bundles = bundles
+
+    def host(metrics, o):
+        return {key: v.cpu() for key, v in metrics.items()}, [p.detach().cpu() for p in o.params]
+
+    def steps(m, o, group=None):
+        per = [T.train_step(cfg, m, o, {key: v[j] for key, v in batches.items()},
+                            draws={key: v[j] for key, v in draws.items()}, group=group)[0] for j in range(k)]
+        return {key: torch.stack([e[key] for e in per]) for key in per[0]}
+
+    runs = [host(steps(m, o), o) for m, o in eager_bundles]
+    init_distributed(card, 1, 0, f"file://{tmp_path / 'store'}")
+    try:
+        group = dist.group.WORLD
+        if graph:
+            multi = T.make_multi_train_step(cfg, models, opt, k, group=group)
+            multi(batches, T.multi_step_draws(cfg, batches, 0, group))
+            torch.cuda.synchronize()
+            assert multi.graph is not None and multi.replays == 1
+            got = host(multi.step_metrics, opt)
+        else:
+            got = host(steps(models, opt, group), opt)
+    finally:
+        shutdown_distributed()
+    res = _against_eager(got, runs, cfg.learning_rate, k)
+    assert res["ok"], res
+    assert opt.count == k

@@ -27,6 +27,9 @@ EVAL_CLIS = ("evaluate_mix", "evaluate_mask", "evaluate_flow", "evaluate_pose", 
 MASK_MODULES = ("masks", "masks.providers", "masks.maskrcnn", "precompute_masks", "ops.nms", "ops.roi_align")
 # the step options' slice: the synthetic rehearsal and its crafted detector
 REHEARSAL_MODULES = ("synthetic_e2e", "masks.crafted")
+# the data-parallel slice: the process group, the step's all-reduce, the
+# multi-process launch check
+PARALLEL_MODULES = ("parallel", "parallel.distributed", "parallel.data_parallel", "multihost_dryrun")
 
 
 def _run(*args: str, timeout: int = 300):
@@ -59,7 +62,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 25
-    assert {f"mdn_sfm_tpu_torch.{m}" for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES + REHEARSAL_MODULES} <= names
+    assert {f"mdn_sfm_tpu_torch.{m}"
+            for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES + REHEARSAL_MODULES + PARALLEL_MODULES} <= names
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
@@ -173,9 +177,18 @@ def test_eval_flags_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [("num_data_shards", 2)])
-def test_unimplemented_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        tc.Config(**{field: value}).validate()
+def test_unimplemented_options_raise(field, value, tmp_path):
+    """One process driving several devices is not the port's: the option
+    validates (it counts the ranks of a process group), and a Trainer whose
+    process has no group of that size refuses it by name."""
+    from mdn_sfm_tpu_torch.trainer import Trainer
+
+    cfg = tc.Config(**{field: value}, log_dir=str(tmp_path)).validate()
+    assert getattr(cfg, field) == value
+    with pytest.raises(ValueError, match=field):
+        Trainer(cfg, synthetic=True, device="cpu")
+    with pytest.raises(ValueError, match=field):
+        tc.Config(**{field: -1}).validate()
 
 
 @pytest.mark.parametrize(

@@ -200,6 +200,28 @@ def test_phase1_cuts_flow_epe():
     assert head.bias.tolist() == [0.0, 0.0, 0.0, 100.0, 0.0, 0.0]
 
 
+def test_phase1_alone_records_each_group(tmp_path, capsys):
+    """``--modes ""`` runs phase 1 and the calibration and no phase-2 row;
+    the record holds each group's photometric loss, the eval world's
+    largest |flow| and EPE, and ``--verbose`` prints them a group a line.
+    ``--compute_dtype`` sets the nets' type (float32 by default on the
+    CPU)."""
+    assert E.phase1_config(_args()).compute_dtype == "float32"
+    assert E.phase1_config(_args(compute_dtype="bfloat16")).compute_dtype == "bfloat16"
+    args = _args(modes="", eval_batch=2, steps1=4, k_steps=2, obj_shift=6, obj_size=8, log_dir=str(tmp_path / "log"))
+    args.bright_world = args.verbose = True
+    record: dict = {}
+    out = E.run(args, record)
+    assert out["modes"] == {} and "sep" not in out
+    groups = record["phase1_groups"]
+    assert len(groups) == 2 and record["phase1"]["steps"] == 4
+    for g in groups:
+        assert set(g) == {"photo", "max_abs_flow_px", "epe"} and np.isfinite(list(g.values())).all(), g
+    assert groups[-1]["photo"] == out["photo_final"]
+    lines = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("phase1 group")]
+    assert len(lines) == 2 and all("max|flow|=" in ln and "epe=" in ln for ln in lines), lines
+
+
 def _jax_tool_keys() -> tuple[set, set]:
     """The top-level and per-row keys of the JAX tool's JSON, read from its
     source: ``results[...]``, the first row's fields it lifts, and each
