@@ -33,7 +33,12 @@ resumed); and data parallelism in a process of its own, one rank of an NCCL
 group (the f32 step through the group, eager and as a K = 4 graph, against
 the step without one; the main path through the group, eager and at K = 4
 with each step's all-reduce inside the graph; the Trainer through it,
-stopped and resumed).
+stopped and resumed); and the port's tools (quantify_d2_scale at its
+defaults with each kernel held against its plain version on the street
+scenes' inputs, generate_mobile_gt's predict and generate_masks phases with
+the crafted detector, bench_precompute, bench_eval at batch 8 and 1,
+bench_e2e's Trainer loop on full-resolution PNGs with its steps and launches
+counted, bench_loader).
 
 Prints one JSON object per phase, the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -168,6 +173,18 @@ DP_STEP0_RTOL = 1e-5
 # the runtime calls that put work on the device, counted in a dispatch's trace
 # the port's device kernels a trace counts by name, each with the wrapper
 # counter it must match: an NMS call launches its sort, mask and scan once each
+# Phase 12, the port's tools at their defaults but where said
+TOOL_MAX_DET = 32       # quantify_d2_scale's and bench_precompute's max_det
+QUANTIFY_SCALES = (1, 2)
+QUANTIFY_IMAGES = 6
+PARITY_JAX_IOU = {2: 0.56, 1: 0.25}  # PARITY.md: the JAX tool's mean IoUs at max_det 32
+TOOL_SCENES = 4         # street scenes through generate_mobile_gt's predict phase
+EVAL_BENCH_N = 32
+EVAL_BENCH_BATCHES = (8, 1)
+E2E_ITEMS = 200         # bench_e2e's default: full-resolution triplets on disk
+E2E_WINDOW_S = 20.0     # bench_e2e's timed window (the tool's default is 60 s)
+E2E_WORKERS = 4
+LOADER_ITEMS = 24
 TRACED_KERNELS = {"epipolar_abs_residual_maps": "epipolar_launches", "nms_sort": "nms_launches",
                   "nms_mask": "nms_launches", "nms_scan": "nms_launches", "roi_align": "roi_align_launches"}
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -585,17 +602,15 @@ def trainer_phase(smi: str, bare_step_ms: float) -> None:
 def write_eval_world(base: str, n: int, frame_hw: tuple[int, int], net_hw: tuple[int, int], **cfg_kw):
     """A KITTI-2015-layout world under ``base`` (``n`` samples with GT flow,
     semantics and GT masks; odometry sequences 09 and 10) written by
-    ``tests/fixtures.py``, and random weights from seed 0 in the reference
+    ``data/worlds.py``, and random weights from seed 0 in the reference
     ``.pth`` layout (flow and pose under v0, the mobile decoder under v1);
     returns the eval Config that reads it."""
     import torch
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    from fixtures import make_gt_masks, make_kitti2015, make_odometry
-
     from mdn_sfm_tpu_torch import checkpoints as ckpt
     from mdn_sfm_tpu_torch import training as T
     from mdn_sfm_tpu_torch.config import Config
+    from mdn_sfm_tpu_torch.data.worlds import make_gt_masks, make_kitti2015, make_odometry
 
     root, log_dir, out_dir = (os.path.join(base, d) for d in ("kitti", "log", "out"))
     make_kitti2015(root, n=n, h=frame_hw[0], w=frame_hw[1])
@@ -2288,6 +2303,214 @@ def data_parallel_phase(smi: str, tg_eager_ms: float | None, tg_k4_ms: float | N
     return res
 
 
+def _tree_bytes(root: str) -> dict:
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def tool_quantify(smi: str) -> dict:
+    """Phase 12 (a): quantify_d2_scale at its defaults (6 scenes of
+    375×1242, the providers at scales 1 and 2 for 192×640 training, max_det
+    32, the backend at 640×2048), each kernel's launches in it; then the NMS
+    and ROIAlign kernels against their plain versions on the inputs scene 0
+    gives the scale-1 and scale-2 providers and the backend."""
+    from mdn_sfm_tpu_torch import quantify_d2_scale as Q
+    from mdn_sfm_tpu_torch.data.worlds import make_street_scene
+
+    backend, providers = Q.build_pipelines(QUANTIFY_SCALES, HEIGHT, WIDTH, TOOL_MAX_DET, device="cuda")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rows, summary = Q.measure(backend, providers, QUANTIFY_IMAGES, HEIGHT, WIDTH)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    img = make_street_scene(*Q.SCENE_HW, n_objects=Q.N_OBJECTS, seed=0)[0]
+    checks = {"backend 640x2048 B=1 street": mask_kernel_checks(capture_kernel_inputs(backend.predict, img),
+                                                                 "backend 640x2048 B=1 street")}
+    for s, prov in providers.items():
+        what = f"provider@{s} {HEIGHT * s}x{WIDTH * s} B=1 street"
+        checks[what] = mask_kernel_checks(capture_kernel_inputs(prov.union_masks_from_images, img[None], HEIGHT,
+                                                                WIDTH), what)
+    gap = {s: summary[f"mean_iou_scale{s}"] - PARITY_JAX_IOU[s] for s in QUANTIFY_SCALES}
+    found = all(r["n_backend"] > 0 for r in rows)
+    ordered = summary["mean_iou_scale2"] > summary["mean_iou_scale1"]
+    ok = found and ordered and counts["nms_launches"] > 0 and counts["roi_align_launches"] > 0
+    emit({"phase": "tool_quantify_d2_scale", "summary": summary, "rows": rows,
+          "parity_md_jax_max_det32": PARITY_JAX_IOU, "gap_to_jax": gap, "seconds": seconds, **counts,
+          "checks": {what: {"nms_identical": all(r["identical"] for r in c["nms"]),
+                            "roi_align_max_abs_err": max(r["max_abs_err"] for r in c["roi"]),
+                            "nms_valid_per_image": [r["valid_per_image"] for r in c["nms"]]}
+                     for what, c in checks.items()},
+          "backend_found_objects_in_every_scene": found, "scale2_above_scale1": ordered, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("quantify_d2_scale failed on the card (see its line)")
+    return {"backend": backend, "counts": counts, "checks": checks, "summary": summary}
+
+
+def tool_generate_mobile_gt(base: str, backend, smi: str) -> dict:
+    """Phase 12 (b): generate_mobile_gt's predict phase with the crafted
+    backend over TOOL_SCENES street scenes of 375×1242 written as PNGs;
+    generate_masks on an instance_numbers.txt that lists every instance of
+    each image and one empty line (each GT PNG must equal the union ×255 of
+    the masks backend.predict returned for its image, the empty line a 1×1
+    zero PNG); --from_semantic_gt on a small instance tree, on the card's
+    process and with --device cpu, equal file for file."""
+    import numpy as np
+    from PIL import Image
+
+    from mdn_sfm_tpu_torch import generate_mobile_gt as G
+    from mdn_sfm_tpu_torch.data.worlds import _write_png8, make_kitti2015, make_street_scene
+
+    images = os.path.join(base, "images")
+    for i in range(TOOL_SCENES):
+        _write_png8(os.path.join(images, f"{i:06d}_10.png"), make_street_scene(375, 1242, seed=100 + i)[0])
+    pred, gt_dir = os.path.join(base, "pred"), os.path.join(base, "gt")
+    argv = ["--input", images, "--pred_output", pred, "--gt_output", gt_dir, "--n_samples", str(TOOL_SCENES + 1)]
+    returned = []
+    real_predict = backend.predict
+
+    def predict(img):
+        out = real_predict(img)
+        returned.append(out[0])
+        return out
+
+    backend.predict = predict
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        G.predict_with_model(G.get_argparser().parse_args(argv + ["--phase", "predict"]), backend=backend)
+    finally:
+        backend.predict = real_predict
+    predict_s = time.perf_counter() - t0
+    counts = _counts()
+    os.makedirs(gt_dir, exist_ok=True)
+    with open(os.path.join(gt_dir, "instance_numbers.txt"), "w") as f:
+        for masks in returned:
+            f.write(" ".join(str(i) for i in range(len(masks))) + "\n")
+        f.write("\n")
+    G.generate_masks(G.get_argparser().parse_args(argv))
+    equal = []
+    for n in range(TOOL_SCENES + 1):
+        with Image.open(os.path.join(gt_dir, f"{n}.png")) as im:
+            got = np.asarray(im)
+        masks = returned[n] if n < len(returned) else np.zeros((0, 1, 1), np.uint8)
+        want = masks.any(0).astype(np.uint8) * 255 if len(masks) else np.zeros((1, 1), np.uint8)
+        equal.append(got.shape == want.shape and bool(np.array_equal(got, want)))
+
+    sem = os.path.join(base, "sem")
+    make_kitti2015(sem, n=3, h=48, w=96)
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(base, f"sem_pred_{dev}")
+        G.main(["--phase", "predict", "--from_semantic_gt", "--instance_dir",
+                os.path.join(sem, "data_semantics", "training", "instance"), "--pred_output", out,
+                "--n_samples", "3", "--device", dev])
+        trees[dev] = _tree_bytes(out)
+    sem_equal = trees["cuda"] == trees["cpu"] and len(trees["cpu"]) == 3
+    ok = all(equal) and len(returned) == TOOL_SCENES and sem_equal and counts["nms_launches"] == 2 * TOOL_SCENES
+    emit({"phase": "tool_generate_mobile_gt", "scenes": TOOL_SCENES, "instances": [len(m) for m in returned],
+          "predict_s": predict_s, **counts, "gt_equals_union_of_predict": equal,
+          "from_semantic_gt_files": sorted(trees["cpu"]), "from_semantic_gt_equal_cpu": sem_equal,
+          "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("generate_mobile_gt failed on the card (see its line)")
+    return {"counts": counts}
+
+
+def _epoch_counts(trainer_cls, records: list):
+    """Trainer.run_epoch wrapped: each call's kernel counts (zeroed just
+    before the epoch, read just after its work is done on the card)."""
+    import torch
+
+    real = trainer_cls.run_epoch
+
+    def run_epoch(self):
+        _zero_counts()
+        step0 = self.step
+        real(self)
+        torch.cuda.synchronize()
+        records.append({"steps": self.step - step0, **_counts()})
+
+    return real, run_epoch
+
+
+def tooling_phase(smi: str, tg_k16_fps: float) -> dict:
+    """Phase 12: the port's tools on the card (quantify_d2_scale,
+    generate_mobile_gt, bench_precompute, bench_eval, bench_e2e and
+    bench_loader), each with its own line, its kernels' launches counted
+    around its work."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdn_sfm_tpu_torch import bench_e2e, bench_eval, bench_loader, bench_precompute
+    from mdn_sfm_tpu_torch.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    quant = tool_quantify(smi)
+    base = tempfile.mkdtemp(prefix="mdn_tools_")
+    try:
+        gen = tool_generate_mobile_gt(base, quant.pop("backend"), smi)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    _zero_counts()
+    pre = bench_precompute.main([])
+    pre_counts = _counts()
+    # one warm-up call and the timed ones of each path, two NMS stages a forward
+    pre_ok = pre["n"] == 16 and pre_counts["nms_launches"] == 2 * (1 + pre["n"] + 1 + pre["n"] // pre["batch"])
+    emit({"phase": "tool_bench_precompute", "result": pre, **pre_counts, "card": smi, "ok": pre_ok})
+
+    evals = {}
+    for b in EVAL_BENCH_BATCHES:
+        _zero_counts()
+        res = bench_eval.main(["--n", str(EVAL_BENCH_N), "--eval_batch_size", str(b), "--height", str(HEIGHT),
+                               "--width", str(WIDTH)])
+        c = _counts()
+        want = 2 * -(-EVAL_BENCH_N // b)  # a launch a batch, warm-up and timed call
+        evals[b] = {"result": res, **c, "ok": c["epipolar_launches"] == want and c["epipolar_maps"] == want}
+        emit({"phase": "tool_bench_eval", "eval_batch_size": b, **evals[b], "expected_launches": want, "card": smi})
+
+    records: list = []
+    real, wrapped = _epoch_counts(Trainer, records)
+    Trainer.run_epoch = wrapped
+    try:
+        e2e = bench_e2e.main(["--n_items", str(E2E_ITEMS), "--window", str(E2E_WINDOW_S), "--workers",
+                              str(E2E_WORKERS), "--batch_size", str(BATCH), "--steps_per_dispatch",
+                              str(DISPATCH_KS[-1]), "--height", str(HEIGHT), "--width", str(WIDTH),
+                              "--compute_fps", str(tg_k16_fps)])
+    finally:
+        Trainer.run_epoch = real
+    timed = records[1:]  # the first epoch is the warm-up
+    per_epoch = E2E_ITEMS // BATCH
+    e2e_counts = {k: sum(r[k] for r in timed) for k in ("steps", "epipolar_launches", "epipolar_maps")}
+    e2e_ok = (len(timed) == e2e["epochs"] and e2e["steps"] == e2e["epochs"] * per_epoch == e2e_counts["steps"]
+              and e2e_counts["epipolar_launches"] == e2e["steps"] and e2e_counts["epipolar_maps"] == 8 * e2e["steps"])
+    emit({"phase": "tool_bench_e2e", "result": e2e, "timed_epochs": timed, "warmup_epoch": records[0],
+          "timed_counts": e2e_counts, "window_s": E2E_WINDOW_S, "frames_over_compute_only": e2e["value"] / tg_k16_fps,
+          "card": smi, "ok": e2e_ok})
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        loader = bench_loader.main([str(LOADER_ITEMS)])
+    emit({"phase": "tool_bench_loader", "printed": buf.getvalue().splitlines(), "result": loader, "card": smi})
+
+    ok = pre_ok and all(e["ok"] for e in evals.values()) and e2e_ok
+    emit({"phase": "tooling", "phase_seconds": time.perf_counter() - t_phase, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the tooling phase failed (see its lines)")
+    return {"quantify": quant, "generate_mobile_gt": gen, "bench_precompute": pre_counts,
+            "bench_eval": {b: {k: e[k] for k in ("epipolar_launches", "epipolar_maps")} for b, e in evals.items()},
+            "bench_e2e": e2e_counts}
+
+
 def data_parallel_only(ranks: int) -> None:
     """``python3 chip_smoke.py --ranks N``: the kernels built and phase 11
     on N cards of this host, N ranks of one NCCL group (each the same checks
@@ -2440,6 +2663,20 @@ def main() -> None:
     # ---- 11. data parallelism: the step through a one-rank NCCL group
     dp = data_parallel_phase(smi, 1e3 * med, graph10["runs"][f"TG_K{DISPATCH_K}"]["median_ms_per_step"])
 
+    # ---- 12. the tools: quantify_d2_scale, generate_mobile_gt and the bench tools
+    tools = tooling_phase(smi, BATCH * 1e3 / graph10["runs"]["TG_K16"]["median_ms_per_step"])
+    for entry in mask_entries:
+        key = f"{entry['name']}_launches"
+        checked = "nms" if entry["name"] == "nms" else "roi"
+        new_err = max(r["max_abs_err"] for c in tools["quantify"]["checks"].values() for r in c[checked])
+        entry["max_abs_err"] = max(entry["max_abs_err"], new_err)
+        # phase 12: launches by tool, and the kernel on the street scenes' inputs
+        entry["tooling"] = {"launches": {"quantify_d2_scale": tools["quantify"]["counts"][key],
+                                         "generate_mobile_gt": tools["generate_mobile_gt"]["counts"][key],
+                                         "bench_precompute": tools["bench_precompute"][key]},
+                            "max_abs_err_street_scenes": new_err,
+                            "checked_on": sorted(tools["quantify"]["checks"])}
+
     # ---- summary lines
     emit({"kernels": [{
         "name": "epipolar_abs_residual_maps",
@@ -2479,6 +2716,14 @@ def main() -> None:
         "data_parallel": {"eager": {"launches": dp["eager"]["epipolar_launches"], "maps": dp["eager"]["epipolar_maps"]},
                           "graph_dispatch": {"launches": dp["graph_counts"]["epipolar_launches"],
                                              "maps": dp["graph_counts"]["epipolar_maps"]}},
+        # phase 12: launches and maps in bench_eval's two evaluate_mix calls a
+        # batch size and in bench_e2e's timed epochs (captured launches × replays
+        # and the tail steps)
+        "tooling": {**{f"bench_eval_batch{b}": {"launches": c["epipolar_launches"], "maps": c["epipolar_maps"]}
+                       for b, c in tools["bench_eval"].items()},
+                    "bench_e2e_timed": {"launches": tools["bench_e2e"]["epipolar_launches"],
+                                        "maps": tools["bench_e2e"]["epipolar_maps"],
+                                        "steps": tools["bench_e2e"]["steps"]}},
     }] + mask_entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 """Cityscapes/KITTI instance-label table — the port's own copy of
 ``mdn_sfm_tpu.labels``: the id → trainId mapping with the reference's 11
 thing classes at trainIds 1..11 (everything else decodes to 0 or 255 and is
-skipped), and each label's colour for the eval panels' boxes."""
+skipped), each label's colour for the eval panels' boxes, and the decoders
+of the instance-segmentation catalog (:mod:`.masks.dataset`)."""
 
 from __future__ import annotations
 
@@ -56,9 +57,37 @@ LABELS = [
 ID2LABEL = {l.id: l for l in LABELS}
 TRAINID2LABEL = {l.trainId: l for l in LABELS if l.trainId not in (0, 255)}
 
+THING_CLASSES_11 = [
+    "dynamic", "person", "rider", "car", "truck", "bus",
+    "caravan", "trailer", "train", "motorcycle", "bicycle",
+]
+THING_CLASSES_8 = [
+    "person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle",
+]
+
 
 def kitti_decode(instance_id: int) -> int:
     """KITTI instance PNG value → trainId; instance maps store
     ``semantic_id * 256 + instance``."""
     label = ID2LABEL.get(int(instance_id) // 256)
+    return label.trainId if label is not None else 255
+
+
+def kitti_decode8(instance_id: int) -> int:
+    """The 8-class variant: dynamic, caravan and trailer dropped with the
+    stuff classes, the rest shifted to trainIds 1..8."""
+    train_id = kitti_decode(instance_id)
+    if train_id in (0, 1, 7, 8, 255):
+        return 255
+    return train_id - 1 if train_id < 7 else train_id - 3
+
+
+def cityscapes_pm_decode(instance_id: int) -> int:
+    """Cityscapes gtFine instanceIds value → trainId. Instances of class c
+    are stored as ``c * 1000 + n``; stuff pixels store the class id itself
+    (values < 1000); 0 and 255 pass through unchanged."""
+    instance_id = int(instance_id)
+    if instance_id in (0, 255):
+        return instance_id
+    label = ID2LABEL.get(instance_id if instance_id < 1000 else instance_id // 1000)
     return label.trainId if label is not None else 255

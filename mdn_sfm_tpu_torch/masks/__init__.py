@@ -7,6 +7,8 @@
 - :mod:`.maskrcnn` — the Mask R-CNN R50-FPN inference graph, its detectron2
   weight import, the live :class:`~.maskrcnn.MaskRCNNProvider` and the
   GT-tooling :class:`~.maskrcnn.MaskRCNNBackend`.
+- :mod:`.dataset` — detectron2-style annotation dicts from KITTI and
+  Cityscapes instance maps.
 """
 
 from .providers import MaskProvider, NullMaskProvider, PrecomputedMaskProvider, build_mask_provider

@@ -571,9 +571,11 @@ class MaskRCNNBackend:
     """Host-facing inference for GT tooling: detectron2's 1024-edge pipeline
     at a static padded input, f32 ROIAlign, the whole batch in one forward.
     Only fixed-size uint8 masks and the detection table come back to the
-    host. (The JAX backend's spatial mesh has no counterpart here.)"""
+    host. ``weights_path``: a detectron2 ``.pth`` or a state dict with its
+    keys; random weights from seed 0 without one. (The JAX backend's spatial
+    mesh has no counterpart here.)"""
 
-    def __init__(self, weights_path: str | None = None, max_det: int = 32, fast: bool = False,
+    def __init__(self, weights_path: str | dict | None = None, max_det: int = 32, fast: bool = False,
                  score_thresh: float = ROI_SCORE_THRESH, input_hw: tuple[int, int] | None = None,
                  device: str | torch.device | None = None):
         sh, sw = input_hw if input_hw is not None else static_input_shape()
@@ -689,28 +691,42 @@ class MaskRCNNProvider:
                                              device=self.device)
 
     @torch.no_grad()
-    def union_fn(self, images: Tensor) -> Tensor:
-        """(B, H0, W0, 3) RGB in [0, 255] (uint8 or float) → (B, height,
-        width) float32 union masks: the non-antialiased bilinear resize to the
-        inference shape, RGB → BGR, caffe mean, the batched Mask R-CNN, boxes
-        back to training coordinates, paste, threshold at 0.5, max over
-        instances."""
+    def detect(self, images: Tensor) -> Detections:
+        """(B, H0, W0, 3) RGB in [0, 255] (uint8 or float) → the batched
+        Mask R-CNN's detections at the inference shape: the non-antialiased
+        bilinear resize to it, RGB → BGR, caffe mean."""
         from ..geometry import resize_bilinear
 
         ih, iw = self.infer_hw
         x = resize_bilinear(images.float(), ih, iw)
         x = x.flip(-1) - _mean_bgr(x.device)
-        det = self.model(x, float(ih), float(iw))
+        return self.model(x, float(ih), float(iw))
+
+    @torch.no_grad()
+    def union_fn(self, images: Tensor) -> Tensor:
+        """(B, H0, W0, 3) RGB in [0, 255] (uint8 or float) → (B, height,
+        width) float32 union masks: :meth:`detect`, boxes back to training
+        coordinates, paste, threshold at 0.5, max over instances."""
+        det = self.detect(images)
         keep = paste_threshold_union_ready(det, det.boxes / float(self.scale), *self.out_hw)
         return keep.any(1).float()
+
+    def _on_device(self, images_rgb) -> Tensor:
+        return torch.as_tensor(np.asarray(images_rgb) if not torch.is_tensor(images_rgb)
+                               else images_rgb).to(self.device)
 
     def union_masks_from_images(self, images_rgb, height: int, width: int) -> Tensor:
         """(B, H0, W0, 3) uint8 RGB (numpy or a tensor) → (B, height, width)
         float32 union masks on the provider's device."""
         if (height, width) != self.out_hw:
             raise ValueError(f"this provider makes {self.out_hw} masks, not {(height, width)}")
-        return self.union_fn(torch.as_tensor(np.asarray(images_rgb) if not torch.is_tensor(images_rgb)
-                                             else images_rgb).to(self.device))
+        return self.union_fn(self._on_device(images_rgb))
+
+    def count_detections(self, images_rgb) -> list[int]:
+        """(B, H0, W0, 3) uint8 RGB (numpy or a tensor) → the valid
+        detections per image, through the preprocessing and model that
+        :meth:`union_masks_from_images` runs."""
+        return [int(n) for n in self.detect(self._on_device(images_rgb)).valid.sum(1).tolist()]
 
     def union_masks(self, keys, height, width):  # MaskProvider protocol
         raise RuntimeError(

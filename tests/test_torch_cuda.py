@@ -703,3 +703,64 @@ def test_one_rank_nccl_step_equals_the_step_without_a_group(card, tmp_path, grap
     res = _against_eager(got, runs, cfg.learning_rate, k)
     assert res["ok"], res
     assert opt.count == k
+
+
+# ---------------------------------------------------------------- the tools
+# quantify_d2_scale and generate_mobile_gt's predict phase at a small size,
+# every Mask R-CNN in f32 (the backend and providers build bf16 networks;
+# here each model is rebuilt in f32 with the same weights), card against CPU
+
+
+def _f32_pipelines(device):
+    from mdn_sfm_tpu_torch import quantify_d2_scale as Q
+    from mdn_sfm_tpu_torch.masks.crafted import brightness_detector_state_dict
+    from mdn_sfm_tpu_torch.masks.maskrcnn import build_model_and_weights
+
+    backend, providers = Q.build_pipelines((1, 2), 64, 128, 8, input_hw=(128, 256), fast=True, device=device)
+    crafted = brightness_detector_state_dict()
+    backend.model = build_model_and_weights(8, crafted, fast=True, dtype=torch.float32, device=device)
+    for prov in providers.values():
+        prov.model = build_model_and_weights(8, crafted, fast=True, score_thresh=prov.model.score_thresh,
+                                             roi_dtype=torch.float32, dtype=torch.float32, device=device)
+    return backend, providers
+
+
+# f32 card against CPU: the detection counts equal, each IoU within this
+# (cuDNN and the CPU sum a convolution's taps in other orders)
+TOOL_IOU_ATOL = 0.01
+
+
+def test_quantify_rows_on_the_card_equal_the_cpu(card):
+    from mdn_sfm_tpu_torch import quantify_d2_scale as Q
+
+    rows = {dev: Q.measure(*_f32_pipelines(dev), 2, 64, 128, scene_hw=(128, 256))[0] for dev in ("cpu", card)}
+    for got, want in zip(rows[card], rows["cpu"]):
+        assert want["n_backend"] > 0
+        for key in want:
+            if key.startswith("n_") or key == "image":
+                assert got[key] == want[key], key
+            else:
+                assert abs(got[key] - want[key]) <= TOOL_IOU_ATOL, (key, got[key], want[key])
+
+
+def test_generate_mobile_gt_predict_on_the_card_equals_the_cpu(card, tmp_path):
+    import numpy as np
+    from PIL import Image
+
+    from mdn_sfm_tpu_torch import generate_mobile_gt as G
+    from mdn_sfm_tpu_torch.data.worlds import _write_png8, make_street_scene
+
+    for i in range(2):
+        _write_png8(str(tmp_path / "images" / f"{i:06d}_10.png"), make_street_scene(128, 256, seed=i)[0])
+    out = {}
+    for dev in ("cpu", card):
+        pred = tmp_path / f"pred_{dev}"
+        args = G.get_argparser().parse_args(["--input", str(tmp_path / "images"), "--pred_output", str(pred),
+                                             "--phase", "predict"])
+        G.predict_with_model(args, backend=_f32_pipelines(dev)[0])
+        out[dev] = {str(p.relative_to(pred)): np.asarray(Image.open(p)) for p in sorted(pred.rglob("*.png"))}
+    assert out[card].keys() == out["cpu"].keys() and len(out["cpu"]) > 0
+    for name, want in out["cpu"].items():
+        got = out[card][name]
+        inter, union = ((got > 0) & (want > 0)).sum(), ((got > 0) | (want > 0)).sum()
+        assert inter / max(union, 1) >= 1 - TOOL_IOU_ATOL, name

@@ -30,6 +30,13 @@ REHEARSAL_MODULES = ("synthetic_e2e", "masks.crafted")
 # the data-parallel slice: the process group, the step's all-reduce, the
 # multi-process launch check
 PARALLEL_MODULES = ("parallel", "parallel.distributed", "parallel.data_parallel", "multihost_dryrun")
+# the tooling slice: the instance-segmentation catalog, the synthetic
+# writers, the GT and scale tools, and the bench tools
+TOOLING_MODULES = ("masks.dataset", "data.worlds", "generate_mobile_gt", "quantify_d2_scale", "bench_e2e",
+                   "bench_eval", "bench_loader", "bench_precompute")
+# the tools that run on a device, with arguments that make them cheap to refuse
+DEVICE_TOOLS = {"quantify_d2_scale": [], "bench_e2e": ["--n_items", "1"], "bench_eval": ["--n", "1"],
+                "bench_precompute": ["--n", "1"], "generate_mobile_gt": ["--phase", "predict"]}
 
 
 def _run(*args: str, timeout: int = 300):
@@ -63,7 +70,8 @@ def test_port_and_chip_smoke_import_no_jax():
     names = set(res.stdout.split())
     assert len(names) >= 25
     assert {f"mdn_sfm_tpu_torch.{m}"
-            for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES + REHEARSAL_MODULES + PARALLEL_MODULES} <= names
+            for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES + REHEARSAL_MODULES + PARALLEL_MODULES
+            + TOOLING_MODULES} <= names
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
@@ -236,6 +244,22 @@ def test_precompute_masks_cli_refuses_silent_cpu_fallback(tmp_path):
     res = _run("-m", "mdn_sfm_tpu_torch.precompute_masks", "--data_path", str(tmp_path), "--allow_random_weights",
                "--limit", "1")
     assert res.returncode != 0 and "CUDA is not available" in res.stderr
+
+
+@pytest.mark.parametrize("tool", sorted(DEVICE_TOOLS))
+def test_device_tools_refuse_silent_cpu_fallback(tool, tmp_path, monkeypatch):
+    """Without --device a tool that touches the device runs on the card or
+    raises before it writes anything in the working directory
+    (bench_loader is host-only, as the JAX tool is)."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    monkeypatch.chdir(tmp_path)
+    mod = importlib.import_module(f"mdn_sfm_tpu_torch.{tool}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(DEVICE_TOOLS[tool])
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("kw", [dict(height=100), dict(frame_ids=(1, 0, -1)), dict(compute_dtype="float16")])
