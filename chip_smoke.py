@@ -38,7 +38,9 @@ defaults with each kernel held against its plain version on the street
 scenes' inputs, generate_mobile_gt's predict and generate_masks phases with
 the crafted detector, bench_precompute, bench_eval at batch 8 and 1,
 bench_e2e's Trainer loop on full-resolution PNGs with its steps and launches
-counted, bench_loader).
+counted, bench_loader); and the serving export (export_model --check, the
+program loaded and run in a process that imports torch alone against the
+live forward), the step's roofline at K = 16 and the batch-scaling study.
 
 Prints one JSON object per phase, the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -109,11 +111,6 @@ PRECOMPUTED_STEPS = 4   # the DS Trainer run on those masks
 # plain version does (--fmad=false), so f32 within a few ulp of the largest
 # value and bf16 within one bf16 rounding of it
 ROI_REL_TOL = {"float32": 1e-6, "bfloat16": 2.0**-8}
-# work counted for the bounds: one IoU (areas, intersection, union, divide)
-# and one ROIAlign output value (4 sub-bins × (8 mul, 3 add, 2 sub, 1 acc),
-# the mean) in f32 operations
-NMS_IOU_FLOP = 18
-ROI_FLOP_PER_OUTPUT = 57
 # detections of a small f32 Mask R-CNN on the card against the CPU, on valid
 # slots: tests/test_maskrcnn.py's JAX-against-torch tolerances
 DET_SCORE_ATOL, DET_BOX_ATOL, DET_MASK_ATOL = 5e-4, 0.1, 2e-3
@@ -170,9 +167,6 @@ DP_WORKER_TIMEOUT_S = 180
 # several ranks against one process on the global batch, step 0: the bound
 # of tests/test_torch_train_step.py (f32, summed in another order)
 DP_STEP0_RTOL = 1e-5
-# the runtime calls that put work on the device, counted in a dispatch's trace
-# the port's device kernels a trace counts by name, each with the wrapper
-# counter it must match: an NMS call launches its sort, mask and scan once each
 # Phase 12, the port's tools at their defaults but where said
 TOOL_MAX_DET = 32       # quantify_d2_scale's and bench_precompute's max_det
 QUANTIFY_SCALES = (1, 2)
@@ -185,18 +179,28 @@ E2E_ITEMS = 200         # bench_e2e's default: full-resolution triplets on disk
 E2E_WINDOW_S = 20.0     # bench_e2e's timed window (the tool's default is 60 s)
 E2E_WORKERS = 4
 LOADER_ITEMS = 24
+# Phase 13: the serving export at the JAX tool's defaults (640×192, batch 1,
+# bf16, random weights from seed 0), loaded in a process that imports torch
+# alone and held against the live forward within one bf16 rounding of each
+# output's largest value; the roofline of the main path at K = 16 (phase
+# 10's TG K); the scaling study at batches 4-32, remat off and on
+EXPORT_BF16_REL = 2.0**-8
+ROOFLINE_K = 16
+SCALING_BS = (4, 8, 16, 32)
+SCALING_K = 8           # bench_scaling's default K
+SCALING_ROUNDS = 3      # bench_scaling's default rounds
+# the port's device kernels a trace counts by name, each with the wrapper
+# counter it must match: an NMS call launches its sort, mask and scan once each
 TRACED_KERNELS = {"epipolar_abs_residual_maps": "epipolar_launches", "nms_sort": "nms_launches",
                   "nms_mask": "nms_launches", "nms_scan": "nms_launches", "roi_align": "roi_align_launches"}
+# the runtime calls that put work on the device, counted in a dispatch's trace
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                      "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s
-# and float32 FLOP/s outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-# the epipolar map per pixel: F·p1 (12), p2 (2), l·p2 (4), the norm (6),
-# divide + abs (2)
-EPI_FLOP_PER_PX = 26
+# The kernels' bounds: their bytes and f32 operations by the formulas of
+# mdn_sfm_tpu_torch/roofline.py (epipolar_work, nms_work, roi_align_work),
+# over the H100 SXM's published HBM3 rate and float32 rate outside the
+# tensor cores (its PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S).
 # kernel vs plain: the kernel is built with --fmad=false and rounds op by op
 # as the plain version does; allow a few ulp of the map's largest value
 EPI_REL_TOL = 1e-5
@@ -253,15 +257,22 @@ def device_ms(fn, reps: int, warmup: int, replays: int = 5) -> float:
     return statistics.median(times)
 
 
+def _times_ms(work: tuple[int, int]) -> tuple[float, float]:
+    """(bytes, f32 operations) → their times in ms at the card's peaks."""
+    from mdn_sfm_tpu_torch import roofline as RL
+
+    nbytes, flops = work
+    return 1e3 * nbytes / RL.PEAK_BYTES_PER_S, 1e3 * flops / RL.PEAK_F32_FLOP_PER_S
+
+
 def epi_bound_ms(maps) -> tuple[float, float]:
-    """(bytes, operations) times in ms for the maps: each flow read once, each
-    map written once and the pose tables (inv_K, R, t: 21 floats an image),
-    against the maps' f32 operations. The least time the card could take is
-    the larger of the two."""
-    px = sum(m.flow[..., 0].numel() for m in maps)
-    images = sum(m.flow.shape[0] for m in maps)
-    nbytes = px * (2 * 4 + 4) + images * (9 + 9 + 3) * 4
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * px * EPI_FLOP_PER_PX / PEAK_F32_FLOP_PER_S
+    """(bytes, operations) times in ms for the maps (``roofline.epipolar_work``:
+    each flow read once, each map written once and the pose tables, against
+    the maps' f32 operations). The least time the card could take is the
+    larger of the two."""
+    from mdn_sfm_tpu_torch import roofline as RL
+
+    return _times_ms(RL.epipolar_work(maps))
 
 
 def bound_of(t_bytes: float, t_ops: float) -> tuple[float, str]:
@@ -845,32 +856,20 @@ def capture_kernel_inputs(fn, *args):
 
 
 def nms_bound_ms(boxes, scores, keep, valid) -> tuple[float, str]:
-    """The least time of one NMS stage: its inputs read and outputs written
-    once, against the IoUs this data needs (each kept box against every box
-    after it in score order)."""
-    import torch
+    """The least time of one NMS stage (``roofline.nms_work``: its inputs read
+    and outputs written once, against the IoUs this data needs)."""
+    from mdn_sfm_tpu_torch import roofline as RL
 
-    n_img, n, _ = boxes.shape
-    nbytes = n_img * n * (16 + 4) + keep.numel() * (4 + 1)
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
-    rank = torch.empty_like(order)
-    rank.scatter_(1, order, torch.arange(n, device=order.device).expand(n_img, n).contiguous())
-    ious = int(((n - rank.gather(1, keep.long())) * valid).sum())
-    return bound_of(1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * ious * NMS_IOU_FLOP / PEAK_F32_FLOP_PER_S)
+    return bound_of(*_times_ms(RL.nms_work(boxes, scores, keep, valid)))
 
 
 def roi_bound_ms(feats, boxes, out_size) -> tuple[float, str]:
-    """The least time of one ROIAlign: the feature pixels its taps touch and
-    the boxes read once, the output written once, against its blend
-    operations."""
-    from mdn_sfm_tpu_torch.ops import roi_align as RA
+    """The least time of one ROIAlign (``roofline.roi_align_work``: the
+    feature pixels its taps touch and the boxes read once, the output
+    written once, against its blend operations)."""
+    from mdn_sfm_tpu_torch import roofline as RL
 
-    n_img, n_box, _ = boxes.shape
-    c, item = feats[0].shape[-1], feats[0].element_size()
-    taps = RA.distinct_taps(boxes, [(f.shape[1], f.shape[2]) for f in feats], out_size)
-    outputs = n_img * n_box * out_size * out_size * c
-    nbytes = taps * c * item + boxes.numel() * 4 + outputs * item
-    return bound_of(1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * outputs * ROI_FLOP_PER_OUTPUT / PEAK_F32_FLOP_PER_S)
+    return bound_of(*_times_ms(RL.roi_align_work(feats, boxes, out_size)))
 
 
 def mask_kernel_checks(calls: dict, what: str) -> dict:
@@ -2511,6 +2510,194 @@ def tooling_phase(smi: str, tg_k16_fps: float) -> dict:
             "bench_e2e": e2e_counts}
 
 
+# run in a fresh interpreter that imports torch alone: for each (program,
+# saved pair) load the program, run it on the pair with PyTorch's default
+# flags and then with utils.use_full_f32's (TF32 off), and hold each run
+# against the live outputs
+EXPORT_LOAD_AND_RUN = """
+import json, sys, time
+import torch
+args = sys.argv[1:]
+defaults = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+records = []
+for path, saved in zip(args[::2], args[1::2]):
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
+    t0 = time.perf_counter()
+    forward = torch.export.load(path).module()
+    load_s = time.perf_counter() - t0
+    d = torch.load(saved)
+    errs = {}
+    for flags in ("defaults", "full_f32"):
+        if flags == "full_f32":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            got = forward(d["tgt"], d["ref"])
+        errs[flags] = [float((a - b).abs().max()) for a, b in zip(got, d["live"])]
+    torch.cuda.synchronize()
+    records.append({"load_s": load_s, "max_abs_err": errs, "max_abs": [float(b.abs().max()) for b in d["live"]],
+                    "shapes": [list(a.shape) for a in got], "dtypes": [str(a.dtype) for a in got]})
+port = sorted(m for m in sys.modules if m.split(".")[0] in ("mdn_sfm_tpu_torch", "mdn_sfm_tpu", "jax"))
+assert not port, port
+print(json.dumps(records))
+"""
+# the f32 program of the fresh-process check (a small shape: TF32 shows there)
+EXPORT_F32_SHAPE = (2, 64, 96)
+
+
+def _save_live_pair(path: str, cfg, batch: int) -> None:
+    """A random normalized pair and the live forward's outputs on it, with
+    the tool's random weights (seed 0), saved at ``path`` for
+    :data:`EXPORT_LOAD_AND_RUN`."""
+    import numpy as np
+    import torch
+
+    from mdn_sfm_tpu_torch import export_model as X
+    from mdn_sfm_tpu_torch import training as T
+
+    models = T.build_models(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(1)
+    tgt, ref = (torch.from_numpy(rng.normal(size=(batch, cfg.height, cfg.width, 3)).astype(np.float32)).cuda()
+                for _ in range(2))
+    torch.save({"tgt": tgt, "ref": ref, "live": list(X.build_forward(cfg, models)(tgt, ref))}, path)
+
+
+def export_check(smi: str) -> dict:
+    """(a) ``export_model`` at the JAX tool's defaults on the card with
+    ``--check``, the program read back (its convolutions' dtypes, no layout
+    copy, no kernel launched); then it and a small f32 program run in a
+    fresh process that imports torch alone against the live forward's saved
+    outputs: the bf16 one within one bf16 rounding, the f32 one equal with
+    TF32 off."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdn_sfm_tpu_torch import export_model as X
+    from mdn_sfm_tpu_torch import training as T
+    from mdn_sfm_tpu_torch.config import Config
+
+    base = tempfile.mkdtemp(prefix="mdn_export_")
+    try:
+        out = os.path.join(base, "model.pt2")
+        _zero_counts()
+        result = X.main(["--out", out, "--log_dir", os.path.join(base, "log"), "--check"])
+        counts = _counts()
+        program = torch.export.load(out)
+        dtypes = X.conv_input_dtypes(program)
+        copies = X.copies(program)
+        del program
+        cfg = Config(height=HEIGHT, width=WIDTH, batch_size=1, compute_dtype="bfloat16").validate()
+        _save_live_pair(os.path.join(base, "pair.pt"), cfg, 1)
+
+        b, h, w = EXPORT_F32_SHAPE
+        cfg32 = Config(height=h, width=w, batch_size=b, compute_dtype="float32").validate()
+        out32 = os.path.join(base, "model_f32.pt2")
+        torch.export.save(X.export_model(cfg32, T.build_models(cfg32, torch.Generator().manual_seed(0), "cuda"),
+                                         b, "cuda"), out32)
+        _save_live_pair(os.path.join(base, "pair_f32.pt"), cfg32, b)
+
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", EXPORT_LOAD_AND_RUN, out, os.path.join(base, "pair.pt"), out32,
+                              os.path.join(base, "pair_f32.pt")], cwd=base, capture_output=True, text=True,
+                             timeout=300, env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+        process_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"the exported programs failed in a fresh process: {res.stderr[-2000:]}")
+        fresh, fresh32 = json.loads(res.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    tol = [EXPORT_BF16_REL * m for m in fresh["max_abs"]]
+    want_shapes = [[1, HEIGHT, WIDTH, 2], [1, HEIGHT, WIDTH, 1], [1, 1, 1, 3], [1, 1, 1, 3]]
+    ok = (all(e <= t for run in fresh["max_abs_err"].values() for e, t in zip(run, tol))
+          and fresh["shapes"] == want_shapes and set(fresh["dtypes"]) == {"torch.float32"}
+          and all(math.isfinite(m) for m in fresh["max_abs"])
+          and set(dtypes.values()) == {(torch.bfloat16, torch.bfloat16)} and not copies
+          and not any(counts.values()) and max(fresh32["max_abs_err"]["full_f32"]) <= X.CHECK_ATOL)
+    rec = {"artifact_bytes": result["bytes"], "export_s": result["export_s"],
+           "check_in_process": result["check"], "fresh_process_s": process_s, "fresh_process": fresh,
+           "fresh_tol_abs": tol,
+           "fresh_process_f32": {"shape": list(EXPORT_F32_SHAPE), **fresh32, "tol_abs_full_f32": X.CHECK_ATOL},
+           "convolutions": len(dtypes), "conv_input_dtypes": sorted({str(d) for d in dtypes.values()}),
+           "layout_copies": copies, "kernel_launches": counts, "card": smi, "ok": ok}
+    emit({"phase": "export", **rec})
+    if not ok:
+        raise AssertionError("the exported program failed its checks (see its line)")
+    return rec
+
+
+def roofline_check(smi: str, tg_k16_ms: float | None) -> dict:
+    """(b) ``roofline`` on the main path at K = ROOFLINE_K: its JSON line,
+    beside phase 10's TG median at the same K; a compute share outside (0, 1]
+    is a counting fault. Its launches: the counted eager step, the capture's
+    warm-up of K steps, and K a replay over the warm and timed dispatches."""
+    from mdn_sfm_tpu_torch import roofline as RL
+
+    _zero_counts()
+    line = RL.main(["--k_steps", str(ROOFLINE_K)])
+    counts = _counts()
+    steps = 1 + ROOFLINE_K * (2 + RL.TIMED_DISPATCHES)
+    expected = {"epipolar_launches": steps, "epipolar_maps": 8 * steps, "nms_launches": 0, "roi_align_launches": 0}
+    kernels = line["counted"]["kernels"]
+    ok = (0.0 < line["util_compute"] <= 1.0 and counts == expected and kernels["epipolar"]["launches"] == 1
+          and kernels["epipolar"]["maps"] == 8 and line["util_bandwidth"] > 0)
+    rec = {"roofline": line, "phase10_tg_k16_ms": tg_k16_ms, **counts, "expected": expected,
+           "note": ("util_bandwidth above 1: the byte count is the ATen ops' traffic as issued, part of which L2 "
+                    "serves" if line["util_bandwidth"] > 1 else None), "card": smi, "ok": ok}
+    emit({"phase": "roofline", **rec})
+    if not ok:
+        raise AssertionError("the roofline failed its checks (see its line)")
+    return rec
+
+
+def scaling_check(smi: str) -> dict:
+    """(c) ``bench_scaling`` at SCALING_BS, remat off and on, K =
+    SCALING_K: every row a rate or an out-of-memory error, batch 4 without
+    remat a rate; on rows that all ran, each made the warm-up's K launches
+    and K a replay over 1 + SCALING_ROUNDS dispatches."""
+    import contextlib
+    import io
+
+    from mdn_sfm_tpu_torch import bench_scaling as BS
+
+    _zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = BS.main(["--bs", ",".join(map(str, SCALING_BS)), "--remat", "off,on", "--k", str(SCALING_K),
+                        "--rounds", str(SCALING_ROUNDS)])
+    counts = _counts()
+    ran = [r for r in rows if "error" not in r]
+    steps = len(ran) * SCALING_K * (2 + SCALING_ROUNDS)
+    expected = {"epipolar_launches": steps, "epipolar_maps": 8 * steps, "nms_launches": 0, "roi_align_launches": 0}
+    first = next(r for r in rows if r["bs"] == SCALING_BS[0] and not r["remat"])
+    ok = (all(r.get("frames_per_s", 0) > 0 or r.get("error", "").startswith("OutOfMemoryError") for r in rows)
+          and "error" not in first and (len(ran) < len(rows) or counts == expected))
+    for r in rows:
+        emit({"phase": "scaling_row", **r, "card": smi})
+    rec = {"rows": rows, **counts, "expected_if_all_ran": expected, "table": buf.getvalue().splitlines()[-len(rows) - 2:],
+           "card": smi, "ok": ok}
+    emit({"phase": "scaling", **{k: v for k, v in rec.items() if k != "rows"}})
+    if not ok:
+        raise AssertionError("the scaling study failed its checks (see its lines)")
+    return rec
+
+
+def export_roofline_phase(smi: str, tg_k16_ms: float | None) -> dict:
+    """Phase 13: the serving export, the step's roofline and the scaling
+    study on the card (``export_model``, ``roofline``, ``bench_scaling``)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    export = export_check(smi)
+    torch.cuda.empty_cache()
+    roof = roofline_check(smi, tg_k16_ms)
+    torch.cuda.empty_cache()
+    scaling = scaling_check(smi)
+    emit({"phase": "export_roofline_scaling", "phase_seconds": time.perf_counter() - t_phase, "card": smi,
+          "ok": True})
+    return {"export": export, "roofline": roof, "scaling": scaling}
+
+
 def data_parallel_only(ranks: int) -> None:
     """``python3 chip_smoke.py --ranks N``: the kernels built and phase 11
     on N cards of this host, N ranks of one NCCL group (each the same checks
@@ -2677,6 +2864,9 @@ def main() -> None:
                             "max_abs_err_street_scenes": new_err,
                             "checked_on": sorted(tools["quantify"]["checks"])}
 
+    # ---- 13. the serving export, the step's roofline and the scaling study
+    serving = export_roofline_phase(smi, graph10["runs"]["TG_K16"]["median_ms_per_step"])
+
     # ---- summary lines
     emit({"kernels": [{
         "name": "epipolar_abs_residual_maps",
@@ -2724,6 +2914,11 @@ def main() -> None:
                     "bench_e2e_timed": {"launches": tools["bench_e2e"]["epipolar_launches"],
                                         "maps": tools["bench_e2e"]["epipolar_maps"],
                                         "steps": tools["bench_e2e"]["steps"]}},
+        # phase 13: launches and maps in the roofline's counted step, capture
+        # warm-up and dispatches, and in the scaling study's rows (none in the
+        # exported forward)
+        "roofline_and_scaling": {name: {"launches": serving[name]["epipolar_launches"],
+                                        "maps": serving[name]["epipolar_maps"]} for name in ("roofline", "scaling")},
     }] + mask_entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -35,9 +35,12 @@ def _sync(device) -> None:
 def bench(backend, n: int, batch: int, scene_hw: tuple[int, int] = (375, 1242)) -> dict:
     """Time ``backend.predict`` a frame against ``predict_union_batch`` a
     batch, after one warm-up call of each, over ``n`` frames trimmed to a
-    multiple of ``batch``."""
+    multiple of ``batch``. Raises ``ValueError`` when ``n < batch``: no whole
+    batch is left to time."""
     from .data.worlds import make_street_scene
 
+    if n < batch:
+        raise ValueError(f"bench_precompute times whole batches: n={n} is less than batch={batch}")
     # trim to a batch multiple: a trailing partial batch would time another
     # shape than the others
     n -= n % batch

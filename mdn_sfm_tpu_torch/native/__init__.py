@@ -4,18 +4,21 @@
 linked against the system libjpeg and libpng).
 
 Each library is built with ``g++`` at first use into the git-ignored
-``mdn_sfm_tpu_torch/_build/``, named by a hash of its source and flags. The
-build is safe across processes: the compiler writes a temporary file that
-``os.replace`` moves into place, under an ``fcntl`` lock on a file beside
-it. A process that finds another one building waits on the lock and then
-loads the finished library; it never sees a half-written one.
-``imgio_available()`` is False only when compiling or linking ``imgio.cpp``
-fails (no libjpeg/libpng headers or libraries).
+``mdn_sfm_tpu_torch/_build/``, named by a hash of its source, its flags and
+the shared libraries it links as this host's loader finds them (so a copy of
+the tree on a host with other libraries builds its own). The build is safe
+across processes: the compiler writes a temporary file that ``os.replace``
+moves into place, under an ``fcntl`` lock on a file beside it. A process
+that finds another one building waits on the lock and then loads the
+finished library; it never sees a half-written one. ``imgio_available()`` is
+False when compiling or linking ``imgio.cpp`` fails (no libjpeg/libpng
+headers or libraries) or when the built library does not load.
 """
 
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import fcntl
 import hashlib
 import os
@@ -32,14 +35,16 @@ _LIBS = {"rle": (), "imgio": ("-ljpeg", "-lpng")}
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
-_IMGIO_FAILED: list[str] = []  # the compiler's message, once imgio failed to build
+_IMGIO_FAILED: list[str] = []  # the compiler's or the loader's message, once imgio failed
 
 
 def library_path(name: str) -> Path:
-    """Where ``<name>.cpp`` is built: ``_build/lib<name>-<hash>.so``."""
+    """Where ``<name>.cpp`` is built: ``_build/lib<name>-<hash>.so``, the hash
+    of its source, its flags and the sonames of the libraries it links."""
     src = (_HERE / f"{name}.cpp").read_bytes()
     flags = " ".join(CXX_FLAGS + _LIBS[name]).encode()
-    return BUILD_DIR / f"lib{name}-{hashlib.sha256(src + flags).hexdigest()[:12]}.so"
+    linked = " ".join(str(ctypes.util.find_library(flag[2:])) for flag in _LIBS[name]).encode()
+    return BUILD_DIR / f"lib{name}-{hashlib.sha256(src + flags + linked).hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -197,14 +202,18 @@ def nms(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float, max_keep: i
 
 
 def _imgio() -> ctypes.CDLL | None:
-    """The decode library, or None when it cannot be compiled or linked."""
+    """The decode library, or None when it cannot be compiled, linked or
+    loaded (``ctypes.CDLL`` raises ``OSError`` for a library whose
+    dependencies this host lacks)."""
     if _IMGIO_FAILED:
         return None
     try:
         return _load("imgio")
     except subprocess.CalledProcessError as e:
         _IMGIO_FAILED.append(e.stderr or str(e))
-        return None
+    except OSError as e:
+        _IMGIO_FAILED.append(str(e))
+    return None
 
 
 def imgio_available() -> bool:

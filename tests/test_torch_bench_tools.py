@@ -7,8 +7,6 @@ the JAX tool's (``tools/*.py``, read by path): the same defaults, plus
 The tools' numbers here are CPU times and stand for nothing on the card.
 About 30 s on one worker."""
 
-import argparse
-import importlib.util
 import json
 import os
 
@@ -17,8 +15,8 @@ import pytest
 from mdn_sfm_tpu_torch import bench_e2e, bench_eval, bench_loader, bench_precompute, quantify_d2_scale
 from mdn_sfm_tpu_torch.data.splits import repo_root
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tool_flags import defaults, jax_parser
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX bench_e2e's result keys, and the device the port's result names
 E2E_KEYS = {"metric", "value", "unit", "loader_only_triplets_per_s", "compute_only_frames_per_s",
             "implied_host_cores_to_feed_chip", "host_cores", "steps", "epochs", "window_s", "shape", "workers",
@@ -26,35 +24,11 @@ E2E_KEYS = {"metric", "value", "unit", "loader_only_triplets_per_s", "compute_on
 TPU_COMPUTE_FPS = 262.0  # the JAX tool's default: a TPU figure
 
 
-class _Parsed(Exception):
-    pass
-
-
-def _jax_parser(tool: str) -> argparse.ArgumentParser:
-    """The parser ``tools/{tool}.py``'s main builds, caught at its parse."""
-    spec = importlib.util.spec_from_file_location(f"jax_{tool}", os.path.join(REPO, "tools", f"{tool}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-
-    def parse_args(self, *a, **k):
-        raise _Parsed(self)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(argparse.ArgumentParser, "parse_args", parse_args)
-        with pytest.raises(_Parsed) as e:
-            mod.main()
-    return e.value.args[0]
-
-
-def _defaults(parser) -> dict:
-    return {a.dest: (a.default, a.nargs, type(a).__name__) for a in parser._actions if a.dest != "help"}
-
-
 @pytest.mark.parametrize("tool", ["bench_e2e", "bench_eval", "bench_precompute", "quantify_d2_scale"])
 def test_flags_are_the_jax_tools_plus_device_and_no_tpu_figure(tool):
     port = {"bench_e2e": bench_e2e, "bench_eval": bench_eval, "bench_precompute": bench_precompute,
             "quantify_d2_scale": quantify_d2_scale}[tool]
-    want, got = _defaults(_jax_parser(tool)), _defaults(port.build_parser())
+    want, got = defaults(jax_parser(tool)), defaults(port.build_parser())
     assert set(got) == set(want) | {"device"} and got["device"][0] == "cuda"
     differ = {k for k in want if got[k] != want[k]}
     if tool == "bench_e2e":
@@ -114,6 +88,16 @@ def test_bench_precompute_trims_to_a_batch_multiple():
     assert set(res) == {"n", "batch", "predict_s_per_img", "union_batch_s_per_img", "speedup"}
     assert res["n"] == 4 and res["batch"] == 2
     assert calls == {"predict": 1 + 4, "union": [2, 2, 2]}  # one warm-up call of each, then the timed ones
+
+
+def test_bench_precompute_refuses_fewer_frames_than_a_batch(monkeypatch):
+    """``--n 4 --batch 8`` leaves no whole batch to time: a ValueError naming
+    both values, not a trim to zero frames."""
+    from mdn_sfm_tpu_torch.masks import maskrcnn
+
+    monkeypatch.setattr(maskrcnn, "MaskRCNNBackend", lambda **kw: object())
+    with pytest.raises(ValueError, match=r"n=4 is less than batch=8"):
+        bench_precompute.main(["--n", "4", "--batch", "8", "--device", "cpu"])
 
 
 def test_bench_loader_times_both_decoders(capsys):

@@ -128,6 +128,21 @@ def test_libraries_are_named_by_source_hash():
         assert path.parent == N.BUILD_DIR and path.name.startswith(f"lib{name}-") and path.suffix == ".so"
 
 
+def test_a_library_that_will_not_load_is_unavailable(tmp_path, monkeypatch):
+    """A built libimgio that ``ctypes`` cannot load (as one built on a host
+    with libjpeg and loaded on one without) makes imgio unavailable, and
+    ``_need_imgio`` raises with the loader's message."""
+    monkeypatch.setattr(N, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(N, "_LOADED", {})
+    monkeypatch.setattr(N, "_IMGIO_FAILED", [])
+    planted = N.library_path("imgio")
+    planted.write_bytes(b"not a shared library")
+    assert not N.imgio_available()
+    with pytest.raises(RuntimeError, match="native imgio is unavailable") as e:
+        N._need_imgio()
+    assert str(planted) in str(e.value)
+
+
 PROCS = 6
 
 

@@ -34,9 +34,14 @@ PARALLEL_MODULES = ("parallel", "parallel.distributed", "parallel.data_parallel"
 # writers, the GT and scale tools, and the bench tools
 TOOLING_MODULES = ("masks.dataset", "data.worlds", "generate_mobile_gt", "quantify_d2_scale", "bench_e2e",
                    "bench_eval", "bench_loader", "bench_precompute")
+# the serving and measurement slice: the forward's export, the step's
+# roofline, the batch-scaling study
+SERVING_MODULES = ("export_model", "roofline", "bench_scaling")
 # the tools that run on a device, with arguments that make them cheap to refuse
 DEVICE_TOOLS = {"quantify_d2_scale": [], "bench_e2e": ["--n_items", "1"], "bench_eval": ["--n", "1"],
-                "bench_precompute": ["--n", "1"], "generate_mobile_gt": ["--phase", "predict"]}
+                "bench_precompute": ["--n", "1"], "generate_mobile_gt": ["--phase", "predict"],
+                "export_model": ["--height", "32", "--width", "64"], "roofline": ["--k_steps", "1"],
+                "bench_scaling": ["--bs", "2", "--k", "1"]}
 
 
 def _run(*args: str, timeout: int = 300):
@@ -71,7 +76,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(names) >= 25
     assert {f"mdn_sfm_tpu_torch.{m}"
             for m in NEW_MODULES + EVAL_CLIS + MASK_MODULES + REHEARSAL_MODULES + PARALLEL_MODULES
-            + TOOLING_MODULES} <= names
+            + TOOLING_MODULES + SERVING_MODULES} <= names
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
