@@ -165,9 +165,9 @@ def load_checkpoint(
         if not os.path.exists(pth):
             if os.path.exists(os.path.join(folder, f"{name}.msgpack")):
                 raise FileNotFoundError(
-                    f"{folder} holds the JAX package's {name}.msgpack but no {name}.pth. Convert it on "
-                    "the JAX side: mdn_sfm_tpu.checkpoints.export_pth(path_pth, name, variables[name]) "
-                    "after mdn_sfm_tpu.checkpoints.load_checkpoint (see README)"
+                    f"{folder} holds the JAX package's {name}.msgpack but no {name}.pth. Convert it: "
+                    "torch.save(mdn_sfm_tpu_torch.weights.state_dict_from_flax(name, variables[name]), "
+                    "path_pth) after mdn_sfm_tpu.checkpoints.load_checkpoint (the README's block)"
                 )
             raise FileNotFoundError(f"no checkpoint for {name} in {folder}")
         out[name] = merge_partial(state_dicts[name], _load(pth))

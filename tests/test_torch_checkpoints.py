@@ -22,6 +22,7 @@ from mdn_sfm_tpu_torch import training as T
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.weights import adam_state_from_optax, state_dict_from_flax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 NETS = ("flownet", "posenet", "mobile_decoder")
 KW = dict(height=32, width=64, compute_dtype="float32")
@@ -154,7 +155,7 @@ def test_save_is_atomic_and_overwrite_recommits(tmp_path, models):
 def test_msgpack_only_folder_says_how_to_convert(tmp_path, variables):
     folder = str(tmp_path / "w")
     JC.save_checkpoint(folder, variables, models_to_save=("mobile_decoder",))
-    with pytest.raises(FileNotFoundError, match="export_pth"):
+    with pytest.raises(FileNotFoundError, match="state_dict_from_flax"):
         C.load_checkpoint(folder, {"mobile_decoder": {}}, ("mobile_decoder",))
     with pytest.raises(FileNotFoundError, match="no checkpoint for posenet"):
         C.load_checkpoint(folder, {"posenet": {}}, ("posenet",))

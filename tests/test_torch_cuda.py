@@ -107,6 +107,28 @@ def test_epipolar_maps_kernel_matches_plain_at_main_path_segments(card, layout, 
         assert err <= REL_TOL * float(wnt.abs().max())
 
 
+@pytest.mark.parametrize("layout,vec", [("loss", True), ("dense", True), ("nchw_view", False)])
+def test_epipolar_maps_kernel_matches_plain_at_the_default_shape(card, layout, vec):
+    """A step's 8 maps at Config()'s default shape (128×416 … 16×52) in one
+    launch, each within REL_TOL of its plain version."""
+    from mdn_sfm_tpu_torch.config import Config
+    from mdn_sfm_tpu_torch.ops import epipolar as E
+    from mdn_sfm_tpu_torch.ops.epipolar_cases import step_maps
+
+    d = Config()
+    maps = step_maps(layout, d.batch_size, d.height, d.width, seed=1)
+    assert [tuple(m.flow.shape[1:3]) for m in maps[::2]] == [(128, 416), (64, 208), (32, 104), (16, 52)]
+    assert all(E.vector_layout(m.flow) is vec for m in maps)
+    n0 = E.epipolar_abs_residual_maps.launches
+    got = E.epipolar_abs_residual_maps(maps)
+    want = E.epipolar_abs_residual_maps_reference(maps)
+    torch.cuda.synchronize()
+    assert E.epipolar_abs_residual_maps.launches == n0 + 1
+    for g, wnt in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - wnt).abs().max()) <= REL_TOL * float(wnt.abs().max())
+
+
 @pytest.mark.parametrize("cli,n_maps", [("mix", 1), ("flow", 2)])
 def test_eval_batch_maps_one_launch_match_plain(card, cli, n_maps):
     """An eval batch at the main path's width (B = 8, 192×640): evaluate_mix's
@@ -389,6 +411,54 @@ def test_fused_ds_step_launches_each_kernel(card, tmp_path):
              RA.multilevel_roi_align.launches)
     assert [a - b for a, b in zip(after, counts)] == [1, 8, 2, 2]
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.parametrize("scale", [1, 4])
+def test_mask_kernels_equal_plain_on_provider_inputs_at_scale(card, tmp_path, monkeypatch, scale):
+    """The NMS and ROIAlign calls of the fused provider at d2_infer_scale 1
+    (192×640) and 4 (768×2560) on a 192×640 batch of 4 (random weights,
+    score 0.05): each kernel equals its plain version on the inputs the
+    provider hands it (NMS identical, bf16 ROIAlign within one bf16
+    rounding of the largest value), 2 calls of each a forward."""
+    from mdn_sfm_tpu_torch.config import Config, Mode
+    from mdn_sfm_tpu_torch.data.synthetic import synthetic_batch
+    from mdn_sfm_tpu_torch.masks import maskrcnn as TM
+    from mdn_sfm_tpu_torch.ops import nms as N
+    from mdn_sfm_tpu_torch.ops import roi_align as RA
+
+    cfg = Config(height=192, width=640, batch_size=4, mode=Mode.DS, mask_provider="maskrcnn",
+                 d2_allow_random_weights=True, d2_score_thresh=0.05, d2_infer_scale=scale,
+                 log_dir=str(tmp_path)).validate()
+    provider = TM.MaskRCNNProvider(cfg, card)
+    calls = {"nms": [], "roi": []}
+    real_nms, real_roi = TM.nms, TM.multilevel_roi_align
+
+    def nms(boxes, scores, thresh, max_out):
+        calls["nms"].append((boxes.clone(), scores.clone(), thresh, max_out))
+        return real_nms(boxes, scores, thresh, max_out)
+
+    def roi(feats, boxes, out_size, sampling=2):
+        calls["roi"].append(([f.clone() for f in feats[:4]], boxes.clone(), out_size))
+        return real_roi(feats, boxes, out_size, sampling)
+
+    monkeypatch.setattr(TM, "nms", nms)
+    monkeypatch.setattr(TM, "multilevel_roi_align", roi)
+    colors, _ = synthetic_batch(4, 192, 640, seed=0)
+    provider.union_fn(torch.from_numpy(colors[:, 0]).to(card).float())
+    assert len(calls["nms"]) == len(calls["roi"]) == 2
+    assert calls["nms"][0][0].shape[1] <= N.MAX_BOXES
+    for boxes, scores, thresh, max_out in calls["nms"]:
+        kk, vk = N.nms(boxes, scores, thresh, max_out)
+        kp, vp = N.nms_reference(boxes, scores, thresh, max_out)
+        torch.cuda.synchronize()
+        assert torch.equal(kk, kp) and torch.equal(vk, vp)
+    for feats, boxes, out_size in calls["roi"]:
+        assert feats[0].dtype == torch.bfloat16
+        got = RA.multilevel_roi_align(feats, boxes, out_size)
+        want = RA.roi_align_reference(feats, boxes, out_size)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert float((got.float() - want.float()).abs().max()) <= 2.0**-8 * float(want.float().abs().max())
 
 
 # ------------------------------------- the step options and IEEE divisions

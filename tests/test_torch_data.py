@@ -27,6 +27,7 @@ from mdn_sfm_tpu_torch.data import loader as tloader
 from mdn_sfm_tpu_torch.data import splits as tsplits
 from mdn_sfm_tpu_torch.data import synthetic as tsynth
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

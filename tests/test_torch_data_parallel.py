@@ -35,6 +35,7 @@ import torch
 from mdn_sfm_tpu_torch import training as TT
 from mdn_sfm_tpu_torch.config import Config, Mode
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, W = 4, 32, 64   # the global batch: 2 samples a rank

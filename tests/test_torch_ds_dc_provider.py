@@ -27,6 +27,7 @@ from mdn_sfm_tpu_torch.config import Config, Mode
 from mdn_sfm_tpu_torch.masks.maskrcnn import MaskRCNNProvider
 from mdn_sfm_tpu_torch.weights import maskrcnn_state_dict_from_flax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 H, W = 64, 96
 SEEDS = (0, 1, 2, 3)

@@ -25,6 +25,7 @@ from mdn_sfm_tpu_torch.config import Config, Mode
 from mdn_sfm_tpu_torch.masks import PrecomputedMaskProvider
 from mdn_sfm_tpu_torch.weights import state_dict_from_flax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 B, H, W = 2, 64, 96
 STEPS = 2

@@ -20,6 +20,7 @@ from mdn_sfm_tpu.trainer import Trainer as JTrainer
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.trainer import Trainer
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 STEPS = 3
 SAMPLES = 2 * STEPS

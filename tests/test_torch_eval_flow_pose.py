@@ -29,6 +29,7 @@ from mdn_sfm_tpu_torch.geometry import gauss_distance_weight
 from mdn_sfm_tpu_torch.viz import load_as_float
 from torch_eval_world import make_world, with_out_dir
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 EPE_RTOL = 1e-4  # EPE from the resized flows; result.txt prints 3 decimals
 MAP_ATOL = 1e-4  # the normalized maps (each max 1), f32

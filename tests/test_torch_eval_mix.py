@@ -26,6 +26,7 @@ from mdn_sfm_tpu_torch.data.eval_datasets import KittiSegDataset
 from mdn_sfm_tpu_torch.weights import state_dict_from_flax
 from torch_eval_world import make_world
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 # f32 maps: the forward tolerance of tests/test_torch_parity.py
 MAP_ATOL = 1e-4

@@ -28,6 +28,7 @@ from mdn_sfm_tpu_torch.data import augment as ta
 from mdn_sfm_tpu_torch.data import eval_datasets as td
 from mdn_sfm_tpu_torch.geometry import resize_linear
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 RESIZE_ATOL = 1e-5  # unit-scale inputs; the weights are JAX's, rounded as it rounds them
 

@@ -27,6 +27,7 @@ from mdn_sfm_tpu_torch import training as T
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.weights import state_dict_from_flax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 from torch_tool_flags import defaults, jax_parser
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -26,6 +26,7 @@ from mdn_sfm_tpu_torch.masks import dataset as TD
 from mdn_sfm_tpu_torch.masks.maskrcnn import MaskRCNNBackend
 from mdn_sfm_tpu_torch.weights import maskrcnn_state_dict_from_flax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE_HW = (128, 256)   # the predict phase's street scenes and the backend's static input

@@ -19,6 +19,7 @@ from mdn_sfm_tpu_torch.masks import maskrcnn as TM
 from mdn_sfm_tpu_torch.weights import maskrcnn_state_dict_from_flax
 from torch_d2_twin import random_twin
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 BUDGET = dict(max_det=4, pre_nms_topk=64, post_nms_topk=32, box_candidates=64)
 H, W = 128, 256

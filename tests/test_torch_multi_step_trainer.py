@@ -14,6 +14,7 @@ from mdn_sfm_tpu_torch import checkpoints as ckpt
 from mdn_sfm_tpu_torch.config import Config
 from mdn_sfm_tpu_torch.trainer import Trainer
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 K = 4
 

@@ -15,6 +15,7 @@ import torch
 from mdn_sfm_tpu_torch.data.splits import SplitLine, shard_for_host
 from mdn_sfm_tpu_torch.parallel import maybe_initialize_distributed, process_count, process_index
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCH_TIMEOUT_S = 600

@@ -16,6 +16,7 @@ from mdn_sfm_tpu import config as jc
 from mdn_sfm_tpu_torch import config as tc
 from mdn_sfm_tpu_torch.utils import resolve_device
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the Trainer's slice: checkpoints, the KITTI data path and the host helpers

@@ -28,6 +28,7 @@ from mdn_sfm_tpu_torch import training as TT
 from mdn_sfm_tpu_torch.data.synthetic import moving_object_batch
 from mdn_sfm_tpu_torch.weights import state_dict_from_flax
 from torch_threads import one_torch_thread  # noqa: F401  (module-scoped fixture)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, B = 32, 64, 2

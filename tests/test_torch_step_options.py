@@ -27,6 +27,7 @@ from mdn_sfm_tpu_torch import training as TT
 from mdn_sfm_tpu_torch.config import Config, Mode
 from mdn_sfm_tpu_torch.weights import adam_state_from_optax, state_dict_from_flax
 from torch_threads import one_torch_thread  # noqa: F401  (module-scoped fixture)
+from torch_tmp import free_temp_dirs  # noqa: F401  (autouse: the module's temporary files freed at its end)
 
 B, H, W = 4, 32, 64
 STEPS = 2
